@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py            # every phase, at SIFT1M scale
+
+Phases, each printing one JSON line:
+  device   the card's name and power limit;
+  build    nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
+  kernels  each kernel against its plain PyTorch version on the card, at the
+           main path's shapes, edge ids and grown-tier table sizes: exact on
+           integer-valued data, within rtol 1e-4 / atol 1e-3 on Gaussian
+           data; median times of kernel, plain version and one library call;
+  parity   a small mixed session and a bulk build run on the card and on
+           the CPU must leave byte-equal state and results;
+  sift1m   the main path: bulk-build a 10^6-vector SIFT-shaped index into
+           2^20 slots, stream rounds of queries, inserts and GLOBAL deletes
+           through ``Session``, recall@10 before and after (fp32 and
+           quantized with rerank), with the launch counts of every kernel.
+Then the kernel table line, the card line as nvidia-smi prints it, and last
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
+a CUDA device, or without the repository beside it, it exits 2 and prints
+no result.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 on the CUDA cores
+RTOL, ATOL = 1e-4, 1e-3         # the Pallas kernels' tolerance (tests/test_kernels.py)
+
+KERNELS = {
+    "gather_scores": dict(
+        source="src/repro_torch/kernels/csrc/gather_scores.cu",
+        replaces="src/repro/kernels/gather_distance.py:37"),
+    "gather_scores_q8": dict(
+        source="src/repro_torch/kernels/csrc/gather_scores.cu",
+        replaces="src/repro/kernels/gather_distance.py:87"),
+    "score_topk": dict(
+        source="src/repro_torch/kernels/csrc/score_topk.cu",
+        replaces="src/repro/kernels/distance_matrix.py:146"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+# ---------------------------------------------------------------------------
+# kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def _int_data(g, shape, device):
+    import torch
+    return torch.randint(-4, 5, shape, generator=g, device=device).float()
+
+
+def _close(got, want):
+    import torch
+    inf_g, inf_w = torch.isinf(got), torch.isinf(want)
+    check(torch.equal(inf_g, inf_w), "-inf mask differs")
+    m = ~inf_g
+    err = (got[m] - want[m]).abs()
+    tol = ATOL + RTOL * want[m].abs()
+    check(bool((err <= tol).all()), f"max error {float(err.max())} over tolerance")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _topk_ids_ok(gs, gi, ws, wi):
+    """Gaussian data: ids equal except where the plain version's scores of
+    the swapped entries lie within the tolerance of each other."""
+    import torch
+    diff = gi != wi
+    if not bool(diff.any()):
+        return 0
+    rows = torch.nonzero(diff.any(1)).flatten()
+    for r in rows.tolist():
+        a, b = set(gi[r].tolist()), set(wi[r].tolist())
+        lo = float(ws[r].min())
+        tol = ATOL + RTOL * abs(lo)
+        # swaps only inside the tie band at the boundary or between equal scores
+        ok = all(abs(float(ws[r][j]) - float(gs[r][j])) <= tol
+                 for j in range(ws.shape[1]))
+        check(ok, f"score_topk row {r}: scores differ beyond tolerance")
+        if a != b:
+            check(abs(float(gs[r][-1]) - lo) <= tol,
+                  f"score_topk row {r}: ids differ outside a near-tie")
+    return int(diff.sum())
+
+
+def phase_kernels(torch, kops, kref, dev) -> dict:
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    N, d = 1 << 20, 128
+    results = {}
+
+    def gather_case(table, aux, ids, q, name, metric):
+        fn = kops.gather_scores if name == "gather_scores" else kops.gather_scores_q8
+        pf = kref.gather_scores if name == "gather_scores" else kref.gather_scores_q8
+        return fn(table, aux, ids, q, metric=metric), pf(table, aux, ids, q, metric)
+
+    # ---- gather_scores / gather_scores_q8: exact on integer data ----
+    from repro_torch.core.quantize import quantize_rows
+    xi = _int_data(g, (N, d), dev)
+    xg = torch.randn((N, d), generator=g, device=dev)
+    report = {}
+    for B in (64, 4096):
+        C = 32
+        ids = torch.randint(0, N, (B, C), generator=g, device=dev, dtype=torch.int32)
+        ids[0, :3] = torch.tensor([-1, N - 1, N], dtype=torch.int32)
+        qi = _int_data(g, (B, d), dev)
+        qg = torch.randn((B, d), generator=g, device=dev)
+        for metric in ("l2", "ip"):
+            got, want = gather_case(xi, (xi * xi).sum(1), ids, qi, "gather_scores", metric)
+            check(torch.equal(got, want), f"gather_scores {metric} B={B}: integer data not exact")
+            ci, si = quantize_rows(xi)
+            got, want = gather_case(ci, si, ids, qi, "gather_scores_q8", metric)
+            check(torch.equal(got, want), f"gather_scores_q8 {metric} B={B}: integer data not exact")
+            got, want = gather_case(xg, (xg * xg).sum(1), ids, qg, "gather_scores", metric)
+            e1 = _close(got, want)
+            cg, sg = quantize_rows(xg)
+            got, want = gather_case(cg, sg, ids, qg, "gather_scores_q8", metric)
+            e2 = _close(got, want)
+            report[f"B{B}_{metric}"] = [e1, e2]
+    # grown-tier table sizes and the tier boundary ids
+    for M in (1 << 10, (1 << 10) + 1, 3 << 10, 1 << 17, (1 << 17) + 1, 3 << 17):
+        t = xg[:M].contiguous()
+        ids = torch.randint(0, M, (13, 17), generator=g, device=dev, dtype=torch.int32)
+        ids[0, :3] = torch.tensor([M - 1, M, -1], dtype=torch.int32)
+        q = torch.randn((13, d), generator=g, device=dev)
+        _close(*gather_case(t, (t * t).sum(1), ids, q, "gather_scores", "l2"))
+        c, s = quantize_rows(t)
+        _close(*gather_case(c, s, ids, q, "gather_scores_q8", "l2"))
+
+    # timings at the GLOBAL-repair shape (B = 64·d_in = 4096, C = 32)
+    B, C = 4096, 32
+    ids = torch.randint(0, N, (B, C), generator=g, device=dev, dtype=torch.int32)
+    q = torch.randn((B, d), generator=g, device=dev)
+    tsq = (xg * xg).sum(1)
+    cg, sg = quantize_rows(xg)
+    safe = ids.long().flatten()
+
+    def lib_gather():
+        rows = xg.index_select(0, safe).view(B, C, d)
+        return 2.0 * torch.einsum("bcd,bd->bc", rows, q) - tsq.index_select(0, safe).view(B, C)
+
+    def lib_gather_q8():
+        rows = cg.index_select(0, safe).view(B, C, d).float()
+        s = sg.index_select(0, safe).view(B, C)
+        return s * (2.0 * torch.einsum("bcd,bd->bc", rows, q)
+                    - s * torch.einsum("bcd,bcd->bc", rows, rows))
+
+    gbytes = B * C * (4 * d + 12) + B * d * 4
+    qbytes = B * C * (d + 12) + B * d * 4
+    for name, table, aux, lib, nbytes in (
+            ("gather_scores", xg, tsq, lib_gather, gbytes),
+            ("gather_scores_q8", cg, sg, lib_gather_q8, qbytes)):
+        kfn = kops.gather_scores if name == "gather_scores" else kops.gather_scores_q8
+        pfn = kref.gather_scores if name == "gather_scores" else kref.gather_scores_q8
+        results[name] = dict(
+            ms=median_ms(lambda: kfn(table, aux, ids, q, metric="l2")),
+            plain_ms=median_ms(lambda: pfn(table, aux, ids, q, "l2")),
+            library_ms=median_ms(lib),
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+            max_abs_err=max(v[0 if name == "gather_scores" else 1]
+                            for v in report.values()),
+            shape=dict(B=B, C=C, N=N, d=d))
+    results["gather_scores"]["ms_B64"] = median_ms(
+        lambda: kops.gather_scores(xg, tsq, ids[:64].contiguous(), q[:64].contiguous()))
+    results["gather_scores_q8"]["ms_B64"] = median_ms(
+        lambda: kops.gather_scores_q8(cg, sg, ids[:64].contiguous(), q[:64].contiguous()))
+    del cg, sg, ci, si
+
+    # ---- score_topk: ids identical on integer data ----
+    Bq, k = 1000, 10
+    qi = _int_data(g, (Bq, d), dev)
+    for metric in ("l2", "ip"):
+        for (kk, nv) in ((10, N), (65, N - 12345)):
+            gs, gi = kops.score_topk(xi, (xi * xi).sum(1), qi, kk, metric=metric, n_valid=nv)
+            ws, wi = kref.score_topk(xi, (xi * xi).sum(1), qi, kk, metric, nv)
+            check(torch.equal(gi, wi) and torch.equal(gs, ws),
+                  f"score_topk {metric} k={kk}: integer data ids/scores differ")
+    # one split (the bulk build's row blocks: B >= 4·SMs·16 queries)
+    M1 = 1 << 16
+    B1 = 16 * 4 * kops.num_sms(dev)
+    q1 = _int_data(g, (B1, d), dev)
+    x1 = xi[:M1].contiguous()
+    check(kops.topk_splits(B1, M1, kops.num_sms(dev)) == 1, "single-split case")
+    gs, gi = kops.score_topk(x1, (x1 * x1).sum(1), q1, 65)
+    ws, wi = kref.score_topk(x1, (x1 * x1).sum(1), q1, 65, "l2")
+    check(torch.equal(gi, wi) and torch.equal(gs, ws),
+          "score_topk single split: integer data ids/scores differ")
+    del q1, x1, gs, gi, ws, wi
+    # all-negative ip padding case and grown tiers (Gaussian)
+    xn = -xg[:123].abs().contiguous()
+    qp = torch.randn((9, 64), generator=g, device=dev).abs()
+    gs, gi = kops.score_topk(xn[:, :64].contiguous(), (xn[:, :64] ** 2).sum(1), qp, 7, metric="ip")
+    ws, wi = kref.score_topk(xn[:, :64].contiguous(), (xn[:, :64] ** 2).sum(1), qp, 7, "ip")
+    check(torch.equal(gi, wi), "score_topk all-negative ip padding case")
+    for M in (1 << 10, (1 << 10) + 1, 3 << 10, 1 << 17, (1 << 17) + 1, 3 << 17):
+        t = xg[:M].contiguous()
+        q = torch.randn((13, d), generator=g, device=dev)
+        gs, gi = kops.score_topk(t, (t * t).sum(1), q, 9)
+        ws, wi = kref.score_topk(t, (t * t).sum(1), q, 9, "l2")
+        _close(gs, ws)
+        _topk_ids_ok(gs, gi, ws, wi)
+        check(bool((gi < M).all()), "score_topk reported a padded row")
+    qg = torch.randn((Bq, d), generator=g, device=dev)
+    tsq = (xg * xg).sum(1)
+    gs, gi = kops.score_topk(xg, tsq, qg, k)
+    ws, wi = kref.score_topk(xg, tsq, qg, k, "l2")
+    err = _close(gs, ws)
+    swaps = _topk_ids_ok(gs, gi, ws, wi)
+
+    def lib_topk():
+        return torch.topk(2.0 * (qg @ xg.T) - tsq[None, :], k, dim=1)
+
+    flops = 2.0 * Bq * N * d
+    results["score_topk"] = dict(
+        ms=median_ms(lambda: kops.score_topk(xg, tsq, qg, k)),
+        plain_ms=median_ms(lambda: kref.score_topk(xg, tsq, qg, k, "l2"), runs=20, warmup=1),
+        library_ms=median_ms(lib_topk, runs=20, warmup=1),
+        bound_ms=max(flops / PEAK_FP32_FLOPS,
+                     ((N * d + N + Bq * d) * 4 + Bq * k * 8) / PEAK_BYTES_PER_S) * 1e3,
+        bound_by="operations", max_abs_err=err, id_swaps_near_ties=swaps,
+        shape=dict(B=Bq, M=N, d=d, k=k))
+    qb = torch.randn((16384, d), generator=g, device=dev)
+    results["score_topk"]["ms_build_block"] = median_ms(
+        lambda: kops.score_topk(xg, tsq, qb, 65), runs=3, warmup=1)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# card vs CPU session parity
+# ---------------------------------------------------------------------------
+
+def run_parity_session(device: str, seed: int = 0) -> dict:
+    import numpy as np
+
+    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session
+    from repro_torch.core.graph import graph_state_to_numpy
+
+    params = IndexParams(
+        capacity=4096, dim=32, d_out=8,
+        search=SearchParams(pool_size=16, max_steps=48, num_starts=2),
+        maintenance=MaintenanceParams(strategy="global"))
+    rng = np.random.default_rng(seed)
+    s = Session(params, seed=seed, device=device)
+    out = {"ids0": s.insert(rng.integers(-4, 5, (1024, 32)).astype(np.float32)).result()}
+    alive = set(out["ids0"].tolist())
+    for rnd in range(2):
+        Q = rng.integers(-4, 5, (256, 32)).astype(np.float32)
+        out[f"q{rnd}"] = s.query(Q, k=10).result()
+        ins = s.insert(rng.integers(-4, 5, (256, 32)).astype(np.float32)).result()
+        out[f"ins{rnd}"] = ins
+        alive |= set(ins[ins >= 0].tolist())
+        dels = rng.choice(sorted(alive), 256, replace=False).astype(np.int32)
+        s.delete(dels)
+        alive -= set(dels.tolist())
+        s.flush()
+    qparams = dataclasses.replace(params, search=dataclasses.replace(
+        params.search, quantized=True, rerank_depth=16))
+    sq = Session(qparams, seed=seed + 1, state=s.state)
+    out["quantized"] = sq.query(rng.integers(-4, 5, (128, 32)).astype(np.float32), k=10).result()
+    out["state"] = graph_state_to_numpy(s.state)
+    return out
+
+
+def run_parity_build(device: str) -> dict:
+    """bulk_knn_build of integer-valued rows, big enough that score_topk
+    runs both its single-split and its multi-split form."""
+    import numpy as np
+
+    from repro_torch.core import IndexParams, SearchParams
+    from repro_torch.core.graph import graph_state_to_numpy
+    from repro_torch.core.rebuild import bulk_knn_build
+
+    rng = np.random.default_rng(2)
+    n = 9000
+    X = rng.integers(-4, 5, (n, 32)).astype(np.float32)
+    valid = rng.random(n) > 0.05
+    params = IndexParams(capacity=9216, dim=32, d_out=8,
+                         search=SearchParams(pool_size=16, num_starts=2))
+    return graph_state_to_numpy(bulk_knn_build(X, valid, params, k_nn=16,
+                                               device=device))
+
+
+def _flatten(obj, prefix=""):
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(obj, tuple):
+        for i, v in enumerate(obj):
+            yield from _flatten(v, f"{prefix}{i}.")
+    else:
+        yield prefix.rstrip("."), obj
+
+
+def phase_parity() -> dict:
+    import numpy as np
+    t0 = time.perf_counter()
+    gpu = dict(_flatten({"session": run_parity_session("cuda"),
+                         "build": run_parity_build("cuda")}))
+    t1 = time.perf_counter()
+    cpu = dict(_flatten({"session": run_parity_session("cpu"),
+                         "build": run_parity_build("cpu")}))
+    t2 = time.perf_counter()
+    check(gpu.keys() == cpu.keys(), "parity: result keys differ")
+    bad = [k for k in gpu if not np.array_equal(gpu[k], cpu[k])]
+    check(not bad, f"parity: card and CPU differ in {bad}")
+    return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1)
+
+
+# ---------------------------------------------------------------------------
+# the main path at SIFT1M scale
+# ---------------------------------------------------------------------------
+
+def phase_sift1m(torch, n_base: int, rounds: int, per_round: int) -> dict:
+    import numpy as np
+
+    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session
+    from repro_torch.core.graph import NULL
+    from repro_torch.core.health import check_health
+    from repro_torch.core.rebuild import bulk_knn_build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import ops as kops
+
+    n_ins = rounds * per_round
+    data = make_dataset("sift", n_base + n_ins + 1000, seed=0)
+    base, fresh, held = data[:n_base], data[n_base:n_base + n_ins], data[n_base + n_ins:]
+    stream_q = make_dataset("sift", max(n_ins, 1), seed=1)
+    capacity = 1 << max(10, (n_base + n_ins - 1).bit_length())
+    # ipgm_ann's d = 128 settings (src/repro/configs/ipgm_ann.py)
+    sp = SearchParams(pool_size=64, max_steps=128, num_starts=2)
+    params = IndexParams(capacity=capacity, dim=128, d_out=32, d_in=64, search=sp,
+                         maintenance=MaintenanceParams(strategy="global",
+                                                       insert_chunk=64, delete_chunk=64))
+    qparams = dataclasses.replace(params, search=dataclasses.replace(
+        sp, quantized=True, rerank_depth=64))
+    rng = np.random.default_rng(0)
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()                       # the main path starts here
+
+    t0 = time.perf_counter()
+    state = bulk_knn_build(base, np.ones(n_base, bool), params, k_nn=64)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sess = Session(params, state=state, seed=0)
+
+    def recalls(tag):
+        r32 = sess.recall(held, 10)
+        rq = Session(qparams, state=sess.state, seed=0).recall(held, 10)
+        return {f"recall10_fp32_{tag}": r32, f"recall10_q8_rerank64_{tag}": rq}
+
+    out = {"n_base": n_base, "capacity": capacity, "build_s": build_s}
+    out.update(recalls("before"))
+    alive = np.zeros(capacity, bool)
+    alive[:n_base] = True
+    acked = {}
+    op_s = {"query": 0.0, "insert": 0.0, "delete": 0.0}
+    for rnd in range(rounds):
+        sl = slice(rnd * per_round, (rnd + 1) * per_round)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids, _ = sess.query(stream_q[sl], k=10).result()
+        op_s["query"] += time.perf_counter() - t
+        live = sess.state.alive.cpu().numpy()
+        rep = ids[ids != NULL]
+        check(bool(live[rep].all()), "a query reported a non-alive id")
+        t = time.perf_counter()
+        new = sess.insert(fresh[sl]).result()
+        op_s["insert"] += time.perf_counter() - t
+        check(bool((new != NULL).all()), "an insert was refused")
+        for j, v in zip(new.tolist(), range(sl.start, sl.stop)):
+            acked[j] = v
+        alive[new] = True
+        dels = rng.choice(np.flatnonzero(alive), per_round, replace=False).astype(np.int32)
+        t = time.perf_counter()
+        sess.delete(dels)
+        sess.flush()
+        op_s["delete"] += time.perf_counter() - t
+        alive[dels] = False
+        for j in dels.tolist():
+            acked.pop(j, None)
+    sess.flush()
+    st = sess.state
+    live = st.alive.cpu().numpy()
+    check(bool((live == alive).all()), "alive set differs from the host's book")
+    keep = np.array(sorted(acked), np.int64)
+    rows = st.vectors[torch.as_tensor(keep, device=st.device)].cpu().numpy()
+    check(bool(np.array_equal(rows, fresh[[acked[j] for j in keep.tolist()]])),
+          "an acked insert's row differs from the inserted vector")
+    check(int(st.size) == int(st.alive.sum()), "size != alive.sum()")
+    errs = check_health(st)
+    check(not errs, f"health check: {errs}")
+    out.update(recalls("after"))
+    for tag in ("before", "after"):
+        gap = out[f"recall10_fp32_{tag}"] - out[f"recall10_q8_rerank64_{tag}"]
+        check(gap <= 0.02, f"quantized+rerank recall trails fp32 by {gap} ({tag})")
+    torch.cuda.synchronize()
+    out["launches"] = dict(kops.launches)    # the main path ends here
+    out["items_per_s"] = {k: rounds * per_round / v for k, v in op_s.items() if v > 0}
+    out["timers"] = sess.timers.to_dict()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in out["launches"].items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="build,kernels,parity,sift1m")
+    ap.add_argument("--n-base", type=int, default=1_000_000)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--per-round", type=int, default=2048)
+    args = ap.parse_args(argv)
+
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository (src/repro_torch "
+              "missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    phases = set(args.phases.split(","))
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    kernel_rows = {}
+    sift = {}
+    try:
+        t0 = time.perf_counter()
+        kbuild.build_all()
+        ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+                 for n, log in kbuild.build_log.items()}
+        emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+        if "kernels" in phases:
+            kernel_rows = phase_kernels(torch, kops, kref, dev)
+            emit({"phase": "kernels", "card": smi, **kernel_rows})
+            torch.cuda.empty_cache()
+        if "parity" in phases:
+            emit({"phase": "parity", **phase_parity()})
+        if "sift1m" in phases:
+            if args.n_base != 1_000_000 or args.rounds != 4 or args.per_round != 2048:
+                emit({"reduced": {"n_base": args.n_base, "rounds": args.rounds,
+                                  "per_round": args.per_round}})
+            sift = phase_sift1m(torch, args.n_base, args.rounds, args.per_round)
+            emit({"phase": "sift1m", "card": smi, **sift})
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    table = []
+    for name, meta in KERNELS.items():
+        row = kernel_rows.get(name, {})
+        table.append({
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "tpu_source": meta["replaces"],
+            "launches": sift.get("launches", {}).get(name, 0),
+            "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
+            "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
+            "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
+        })
+    emit({"kernels": table})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

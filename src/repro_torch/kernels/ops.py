@@ -1,0 +1,167 @@
+"""Wrappers around the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each wrapper keeps the contract of its ``repro.kernels.ops`` counterpart —
+an id < 0 or ≥ N scores -inf, outputs are cropped to the caller's shape —
+and routes by device alone: a CPU tensor goes through the plain version in
+``kernels/ref.py``; a CUDA tensor launches the kernel or raises. There is
+no fallback from the card to the plain version.
+
+``launches`` counts, per kernel, the wrapper calls that launched it; the
+CPU path never counts.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+METRIC_CODE = {"l2": 0, "ip": 1, "cos": 1}
+TOPK_MAX_K = 128
+TOPK_QUERIES_PER_BLOCK = 16
+TOPK_ROWS_PER_TILE = 64
+
+launches = {"gather_scores": 0, "gather_scores_q8": 0, "score_topk": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    ("gather_scores", "gather_scores_f32"): [_P, _P, _P, _P, _P, _I, _I, _I,
+                                             _I, _I, _P],
+    ("gather_scores", "gather_scores_q8"): [_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _P],
+    ("score_topk", "score_topk_f32"): [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _fn(lib_name: str, fn_name: str):
+    fn = getattr(build.library(lib_name), fn_name)
+    fn.argtypes = _SIGNATURES[(lib_name, fn_name)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _gather_args(table, aux, ids, q, table_dtype, name):
+    _require(table.dim() == 2 and table.dtype == table_dtype,
+             f"{name}: table must be 2-D {table_dtype}")
+    _require(aux.dtype == torch.float32 and aux.shape == (table.shape[0],),
+             f"{name}: per-row vector must be f32[N]")
+    _require(ids.dim() == 2 and q.dim() == 2 and q.shape[0] == ids.shape[0]
+             and q.shape[1] == table.shape[1],
+             f"{name}: ids [B, C] and q [B, d] must match the table")
+    devs = {t.device for t in (table, aux, ids, q)}
+    _require(len(devs) == 1, f"{name}: all tensors must be on one device")
+    return (table.contiguous(), aux.contiguous(),
+            ids.to(torch.int32).contiguous(), q.float().contiguous())
+
+
+def gather_scores(table, tsq, ids, q, *, metric: str = "l2") -> torch.Tensor:
+    """[B, C] fused gather + score of each query against its own candidate
+    rows (replaces ``repro.kernels.gather_distance.gather_scores_pallas``)."""
+    table, tsq, ids, q = _gather_args(table, tsq, ids, q, torch.float32,
+                                      "gather_scores")
+    if table.device.type == "cpu":
+        return ref.gather_scores(table, tsq, ids, q, metric)
+    B, C = ids.shape
+    out = torch.empty((B, C), dtype=torch.float32, device=table.device)
+    if B * C == 0:
+        return out
+    rc = _fn("gather_scores", "gather_scores_f32")(
+        table.data_ptr(), tsq.data_ptr(), ids.data_ptr(), q.data_ptr(),
+        out.data_ptr(), table.shape[0], table.shape[1], B, C,
+        METRIC_CODE[metric], _stream())
+    _check(rc, "gather_scores")
+    launches["gather_scores"] += 1
+    return out
+
+
+def gather_scores_q8(codes, scales, ids, q, *, metric: str = "l2"
+                     ) -> torch.Tensor:
+    """[B, C] fused gather + asymmetric score over int8 codes (replaces
+    ``repro.kernels.gather_distance.gather_scores_q8_pallas``)."""
+    codes, scales, ids, q = _gather_args(codes, scales, ids, q, torch.int8,
+                                         "gather_scores_q8")
+    if codes.device.type == "cpu":
+        return ref.gather_scores_q8(codes, scales, ids, q, metric)
+    B, C = ids.shape
+    out = torch.empty((B, C), dtype=torch.float32, device=codes.device)
+    if B * C == 0:
+        return out
+    rc = _fn("gather_scores", "gather_scores_q8")(
+        codes.data_ptr(), scales.data_ptr(), ids.data_ptr(), q.data_ptr(),
+        out.data_ptr(), codes.shape[0], codes.shape[1], B, C,
+        METRIC_CODE[metric], _stream())
+    _check(rc, "gather_scores_q8")
+    launches["gather_scores_q8"] += 1
+    return out
+
+
+def num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def topk_splits(B: int, M: int, sms: int) -> int:
+    """How many row ranges ``score_topk`` splits M into: enough blocks to
+    cover the SMs a few times over when B alone gives too few."""
+    qblocks = -(-B // TOPK_QUERIES_PER_BLOCK)
+    want = -(-4 * sms // qblocks)
+    most = max(1, M // (16 * TOPK_ROWS_PER_TILE))
+    return max(1, min(want, most))
+
+
+def score_topk(x, xsq, q, k: int, *, metric: str = "l2",
+               n_valid: int | None = None):
+    """Fused brute-force top-k: (scores f32[B, k], ids i32[B, k]) over rows
+    ``< n_valid`` (default all M), ties to the lowest id, missing entries
+    (-inf, -1); the [B, M] matrix is never written (replaces
+    ``repro.kernels.distance_matrix.score_topk_pallas``)."""
+    _require(x.dim() == 2 and q.dim() == 2 and q.shape[1] == x.shape[1],
+             "score_topk: x [M, d] and q [B, d] must share d")
+    _require(x.dtype == torch.float32 and xsq.dtype == torch.float32
+             and xsq.shape == (x.shape[0],), "score_topk: f32 x and xsq[M]")
+    _require(1 <= k <= TOPK_MAX_K, f"score_topk supports 1 <= k <= "
+             f"{TOPK_MAX_K}, got {k}")
+    _require(len({x.device, xsq.device, q.device}) == 1,
+             "score_topk: all tensors must be on one device")
+    M = x.shape[0]
+    n_valid = M if n_valid is None else max(0, min(int(n_valid), M))
+    x, xsq, q = x.contiguous(), xsq.contiguous(), q.float().contiguous()
+    if x.device.type == "cpu":
+        return ref.score_topk(x, xsq, q, k, metric, n_valid)
+    B = q.shape[0]
+    dev = x.device
+    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out_s, out_i
+    splits = topk_splits(B, M, num_sms(dev))
+    part_s = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
+    rc = _fn("score_topk", "score_topk_f32")(
+        x.data_ptr(), xsq.data_ptr(), q.data_ptr(), part_s.data_ptr(),
+        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), M,
+        x.shape[1], B, k, n_valid, METRIC_CODE[metric], splits, _stream())
+    _check(rc, "score_topk")
+    launches["score_topk"] += 1
+    return out_s, out_i

@@ -1,0 +1,211 @@
+"""The kernels' plain PyTorch versions against the JAX package's Pallas
+wrappers (interpret mode on the CPU), at the sweeps of tests/test_kernels.py:
+its shapes, the grown-tier table sizes {2^k, 2^k+1, 3·2^k}, the edge ids
+-1, N-1 and N, and the three metrics. Scores within rtol 1e-4 / atol 1e-3
+on Gaussian data with the -inf mask exact; byte-equal scores and identical
+top-k ids on integer-valued data."""
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.core.quantize import quantize_rows as jquantize
+from repro.kernels import ops as jops
+from repro_torch.core.quantize import quantize_rows as tquantize
+from repro_torch.kernels import ops as tops
+from torch_parity import int_vectors
+
+SHAPES = [  # (M, B, d, k) — tests/test_kernels.py
+    (300, 50, 200, 10),
+    (512, 128, 128, 32),
+    (1000, 17, 960, 5),
+    (64, 8, 32, 4),
+    (257, 33, 100, 16),
+]
+GROWN_TIERS = [2**5, 2**5 + 1, 3 * 2**5, 2**8 + 1]
+METRICS = ["l2", "ip"]          # cos scores as ip inside every kernel
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _assert_scores(got, want):
+    g, w = got.numpy(), np.asarray(want)
+    assert ((g == -np.inf) == (w == -np.inf)).all()
+    m = np.isfinite(w)
+    np.testing.assert_allclose(g[m], w[m], rtol=1e-4, atol=1e-3)
+
+
+def _edge_ids(rng, M, B, C):
+    ids = rng.integers(0, M, size=(B, C)).astype(np.int32)
+    ids[0, :3] = [M - 1, M, -1]
+    return ids
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2])
+@pytest.mark.parametrize("metric", METRICS)
+def test_gather_scores_matches_pallas(shape, metric):
+    M, B, d, _ = shape
+    rng = np.random.default_rng(M + B)
+    x = rng.normal(size=(M, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    xsq = (x * x).sum(1)
+    ids = _edge_ids(rng, M, B, 24)
+    want = jops.gather_scores(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(ids),
+                              jnp.asarray(q), metric=metric)
+    got = tops.gather_scores(_t(x), _t(xsq), _t(ids), _t(q), metric=metric)
+    _assert_scores(got, want)
+
+
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[2]])
+@pytest.mark.parametrize("metric", METRICS)
+def test_gather_scores_q8_matches_pallas(shape, metric):
+    M, B, d, _ = shape
+    rng = np.random.default_rng(M + B + 1)
+    x = rng.normal(size=(M, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    codes, scales = jquantize(jnp.asarray(x))
+    ids = _edge_ids(rng, M, B, 24)
+    want = jops.gather_scores_q8(codes, scales, jnp.asarray(ids), jnp.asarray(q),
+                                 metric=metric)
+    got = tops.gather_scores_q8(_t(codes), _t(scales), _t(ids), _t(q),
+                                metric=metric)
+    _assert_scores(got, want)
+
+
+@pytest.mark.parametrize("shape,metric", [(s, "l2") for s in SHAPES]
+                         + [(s, "ip") for s in SHAPES[:2]])
+def test_score_topk_matches_pallas(shape, metric):
+    M, B, d, k = shape
+    rng = np.random.default_rng(M * 7 + B)
+    x = rng.normal(size=(M, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    xsq = (x * x).sum(1)
+    ws, wi = jops.score_topk(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(q), k,
+                             metric=metric)
+    gs, gi = tops.score_topk(_t(x), _t(xsq), _t(q), k, metric=metric)
+    _assert_scores(gs, ws)
+    assert (gi.numpy() == np.asarray(wi)).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_integer_data_byte_equal(metric):
+    """Integer-valued data: every dot product is exact, so scores are
+    byte-equal and the tie-heavy top-k ids identical (ties → lowest id)."""
+    rng = np.random.default_rng(17)
+    M, B, d, k = 300, 40, 16, 24
+    x = int_vectors(rng, M, d)
+    q = int_vectors(rng, B, d)
+    xsq = (x * x).sum(1)
+    ids = _edge_ids(rng, M, B, 20)
+    want = jops.gather_scores(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(ids),
+                              jnp.asarray(q), metric=metric)
+    got = tops.gather_scores(_t(x), _t(xsq), _t(ids), _t(q), metric=metric)
+    assert (got.numpy() == np.asarray(want)).all()
+    ws, wi = jops.score_topk(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(q), k,
+                             metric=metric)
+    gs, gi = tops.score_topk(_t(x), _t(xsq), _t(q), k, metric=metric)
+    assert (gs.numpy() == np.asarray(ws)).all()
+    assert (gi.numpy() == np.asarray(wi)).all()
+
+
+def test_topk_all_negative_ip_padding():
+    """Padded rows must not displace negative true scores (regression)."""
+    rng = np.random.default_rng(3)
+    M, B, d, k = 123, 9, 64, 7
+    x = -np.abs(rng.normal(size=(M, d))).astype(np.float32)
+    q = np.abs(rng.normal(size=(B, d))).astype(np.float32)
+    xsq = (x * x).sum(1)
+    _, wi = jops.score_topk(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(q), k,
+                            metric="ip")
+    _, gi = tops.score_topk(_t(x), _t(xsq), _t(q), k, metric="ip")
+    assert (gi.numpy() == np.asarray(wi)).all()
+
+
+@pytest.mark.parametrize("M", GROWN_TIERS)
+def test_capacity_tier_sweep(M):
+    """Non-power-of-two table sizes: no row past M leaks into any kernel's
+    output, ids M-1 / M / -1 resolve as in the Pallas wrappers."""
+    d, B, k, C = 48, 13, 9, 17
+    rng = np.random.default_rng(M)
+    x = rng.normal(size=(M, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    xsq = (x * x).sum(1)
+    ws, wi = jops.score_topk(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(q), k)
+    gs, gi = tops.score_topk(_t(x), _t(xsq), _t(q), k)
+    _assert_scores(gs, ws)
+    assert (gi.numpy() == np.asarray(wi)).all() and (gi.numpy() < M).all()
+    ids = _edge_ids(rng, M, B, C)
+    want = jops.gather_scores(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(ids),
+                              jnp.asarray(q))
+    _assert_scores(tops.gather_scores(_t(x), _t(xsq), _t(ids), _t(q)), want)
+    codes, scales = jquantize(jnp.asarray(x))
+    want = jops.gather_scores_q8(codes, scales, jnp.asarray(ids), jnp.asarray(q))
+    _assert_scores(tops.gather_scores_q8(_t(codes), _t(scales), _t(ids), _t(q)),
+                   want)
+
+
+def test_score_topk_n_valid_and_short_tables():
+    """Rows >= n_valid never win; k beyond the valid rows pads (-inf, -1)."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(40, 8)).astype(np.float32)
+    q = rng.normal(size=(5, 8)).astype(np.float32)
+    xsq = (x * x).sum(1)
+    s, i = tops.score_topk(_t(x), _t(xsq), _t(q), 12, n_valid=9)
+    assert (i.numpy()[:, :9] < 9).all() and (i.numpy()[:, 9:] == -1).all()
+    assert np.isneginf(s.numpy()[:, 9:]).all()
+    ws, wi = jops.score_topk(jnp.asarray(x[:9]), jnp.asarray(xsq[:9]),
+                             jnp.asarray(q), 9)
+    assert (i.numpy()[:, :9] == np.asarray(wi)).all()
+    with pytest.raises(ValueError):
+        tops.score_topk(_t(x), _t(xsq), _t(q), tops.TOPK_MAX_K + 1)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2])
+def test_quantize_rows_byte_equal(shape):
+    M, _, d, _ = shape
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(M, d)).astype(np.float32) * rng.uniform(
+        0.01, 10, size=(M, 1)).astype(np.float32)
+    x[0] = 0.0                              # zero row → ZERO_ROW_SCALE
+    x[1, :] = 0.5                           # exact .5 codes: round half even
+    jc, js = jquantize(jnp.asarray(x))
+    tc, ts = tquantize(_t(x))
+    assert (tc.numpy() == np.asarray(jc)).all()
+    assert (ts.numpy() == np.asarray(js)).all()
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """The device alone routes: CPU tensors never launch (or build) a
+    kernel and never count a launch."""
+    tops.reset_launches()
+    rng = np.random.default_rng(0)
+    x = _t(rng.normal(size=(30, 8)).astype(np.float32))
+    ids = _t(rng.integers(0, 30, (4, 5)).astype(np.int32))
+    q = _t(rng.normal(size=(4, 8)).astype(np.float32))
+    tops.gather_scores(x, (x * x).sum(1), ids, q)
+    tops.score_topk(x, (x * x).sum(1), q, 3)
+    assert all(v == 0 for v in tops.launches.values())
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.resolve_device(None)
+    assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_cuda_sources_declare_the_bound_entry_points():
+    """The C symbols the wrappers bind exist in the sources (nvcc is only
+    on the card's machine; chip_smoke.py builds and checks them there)."""
+    csrc = Path(tops.build.CSRC)
+    for (lib, fn), argtypes in tops._SIGNATURES.items():
+        src = (csrc / f"{lib}.cu").read_text()
+        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+        assert m, f"{fn} missing from {lib}.cu"
+        assert len(m.group(1).split(",")) == len(argtypes), fn
