@@ -2,20 +2,31 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py            # every phase, at SIFT1M scale
+    python3 chip_smoke.py --phases build,kernels,maint
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
   build    nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
   kernels  each kernel against its plain PyTorch version on the card, at the
-           main path's shapes, edge ids and grown-tier table sizes: exact on
-           integer-valued data, within rtol 1e-4 / atol 1e-3 on Gaussian
-           data; median times of kernel, plain version and one library call;
-  parity   a small mixed session and a bulk build run on the card and on
-           the CPU must leave byte-equal state and results;
+           main paths' shapes, edge ids and grown-tier table sizes: exact on
+           integer-valued data, within the Pallas tests' tolerances on
+           Gaussian data (rtol 1e-4 / atol 1e-3; score_matrix 2e-4 / 2e-4·d
+           in fp32, 2e-2 / 2e-2·d in bf16); median times of kernel, plain
+           version and one library call;
+  parity   small sessions (GLOBAL, LOCAL, RWALK, MASK with consolidation
+           and a refine pass, an armed session that grows) and a bulk build
+           run on the card and on the CPU must leave byte-equal state and
+           results;
   sift1m   the main path: bulk-build a 10^6-vector SIFT-shaped index into
-           2^20 slots, stream rounds of queries, inserts and GLOBAL deletes
+           2^20 slots, stream rounds (2 of the cell's 4 by default, printed
+           as ``reduced``) of queries, inserts and GLOBAL deletes
            through ``Session``, recall@10 before and after (fp32 and
-           quantized with rerank), with the launch counts of every kernel.
+           quantized with rerank), with the launch counts of every kernel;
+  maint    the paper's §6 protocol on the clustered update pattern at the
+           same scale: PURE, MASK, LOCAL, GLOBAL and RWALK each on a copy of
+           one bulk-built state, ReBuild (PURE + bulk rebuild each step),
+           then MASK's consolidation and a capacity grow, and a refine pass
+           on LOCAL; per-strategy rates and recall@10 after every step.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -48,7 +59,14 @@ KERNELS = {
     "score_topk": dict(
         source="src/repro_torch/kernels/csrc/score_topk.cu",
         replaces="src/repro/kernels/distance_matrix.py:146"),
+    "score_matrix": dict(
+        source="src/repro_torch/kernels/csrc/score_matrix.cu",
+        replaces="src/repro/kernels/distance_matrix.py:59"),
 }
+# (rows R, candidates n) of SELECT-NEIGHBORS' pair matrix at the sift1m
+# settings (d = 128, pool 64, d_out 32, d_in 64, chunk 64): insert, GLOBAL
+# repair, refine, LOCAL, RWALK
+SELECT_SHAPES = ((64, 64), (4096, 64), (64, 96), (4096, 32), (4096, 8))
 
 
 class SmokeFailure(RuntimeError):
@@ -75,6 +93,12 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
+
+def sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
 
 def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     import torch
@@ -103,13 +127,13 @@ def _int_data(g, shape, device):
     return torch.randint(-4, 5, shape, generator=g, device=device).float()
 
 
-def _close(got, want):
+def _close(got, want, rtol=RTOL, atol=ATOL):
     import torch
     inf_g, inf_w = torch.isinf(got), torch.isinf(want)
     check(torch.equal(inf_g, inf_w), "-inf mask differs")
     m = ~inf_g
     err = (got[m] - want[m]).abs()
-    tol = ATOL + RTOL * want[m].abs()
+    tol = atol + rtol * want[m].abs()
     check(bool((err <= tol).all()), f"max error {float(err.max())} over tolerance")
     return float(err.max()) if err.numel() else 0.0
 
@@ -275,7 +299,83 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     qb = torch.randn((16384, d), generator=g, device=dev)
     results["score_topk"]["ms_build_block"] = median_ms(
         lambda: kops.score_topk(xg, tsq, qb, 65), runs=3, warmup=1)
+    del qb
+    results["score_matrix"] = score_matrix_case(torch, kops, kref, dev, g, xg)
     return results
+
+
+def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
+    """score_matrix against its plain version: byte-equal on integer data,
+    within the Pallas tolerances on Gaussian fp32 and bf16 data, at the
+    select shapes (x and q one tensor, as select calls it), the Pallas test
+    shapes and the grown-tier row counts at B = 13."""
+    d = 128
+    errs = []
+
+    def sq(x):
+        return (x.float() * x.float()).sum(-1)
+
+    def tol(dtype, dd):
+        t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        return dict(rtol=t, atol=t * dd)
+
+    for R, n in SELECT_SHAPES:
+        xi = _int_data(g, (R, n, d), dev)
+        for metric in ("l2", "ip"):
+            check(torch.equal(kops.score_matrix(xi, sq(xi), xi, metric=metric),
+                              kref.score_matrix(xi, sq(xi), xi, metric)),
+                  f"score_matrix R={R} n={n} {metric}: integer data not exact")
+        xb = xi.to(torch.bfloat16)
+        check(torch.equal(kops.score_matrix(xb, sq(xb), xb),
+                          kref.score_matrix(xb, sq(xb), xb)),
+              f"score_matrix R={R} n={n} bf16: integer data not exact")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((R, n, d), generator=g, device=dev).to(dtype)
+            e = _close(kops.score_matrix(x, sq(x), x),
+                       kref.score_matrix(x, sq(x), x), **tol(dtype, d))
+            if dtype == torch.float32:
+                errs.append(e)
+    for M, B, dd in ((300, 50, 200), (512, 128, 128), (1000, 17, 960),
+                     (257, 33, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for metric in ("l2", "ip"):
+                x = torch.randn((M, dd), generator=g, device=dev).to(dtype)
+                q = torch.randn((B, dd), generator=g, device=dev).to(dtype)
+                e = _close(kops.score_matrix(x, sq(x), q, metric=metric),
+                           kref.score_matrix(x, sq(x), q, metric), **tol(dtype, dd))
+                if dtype == torch.float32:
+                    errs.append(e)
+    for M in (1 << 10, (1 << 10) + 1, 3 << 10, 1 << 17, (1 << 17) + 1, 3 << 17):
+        x = xg[:M].contiguous()
+        q = torch.randn((13, d), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xx, qq = x.to(dtype), q.to(dtype)
+            got = kops.score_matrix(xx, sq(xx), qq)
+            check(got.shape == (13, M), "score_matrix output not cropped to [B, M]")
+            e = _close(got, kref.score_matrix(xx, sq(xx), qq, "l2"), **tol(dtype, d))
+            if dtype == torch.float32:
+                errs.append(e)
+
+    ms_by_shape = {}
+    for R, n in SELECT_SHAPES:
+        x = torch.randn((R, n, d), generator=g, device=dev)
+        xsq = sq(x)
+        ms_by_shape[f"R{R}_n{n}"] = median_ms(lambda: kops.score_matrix(x, xsq, x))
+    R, n = 4096, 64                      # the GLOBAL-repair select
+    x = torch.randn((R, n, d), generator=g, device=dev)
+    xsq = sq(x)
+    flops = 2.0 * R * n * n * d
+    nbytes = (R * n * d + R * n + R * n * n) * 4      # x read once: q is x
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(
+        ms=median_ms(lambda: kops.score_matrix(x, xsq, x)),
+        plain_ms=median_ms(lambda: kref.score_matrix(x, xsq, x, "l2")),
+        library_ms=median_ms(lambda: torch.baddbmm(
+            -xsq[:, None, :], x, x.transpose(1, 2), alpha=2.0)),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        max_abs_err=max(errs), ms_by_shape=ms_by_shape,
+        shape=dict(R=R, B=n, M=n, d=d))
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +433,53 @@ def run_parity_build(device: str) -> dict:
                                                device=device))
 
 
+def run_parity_maint(device: str) -> dict:
+    """LOCAL and RWALK sessions, a MASK session with consolidation armed and
+    an explicit refine pass, and an armed session that grows twice."""
+    import numpy as np
+
+    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session
+    from repro_torch.core.graph import graph_state_to_numpy
+
+    def params(capacity, **mkw):
+        return IndexParams(
+            capacity=capacity, dim=32, d_out=8,
+            search=SearchParams(pool_size=16, max_steps=48, num_starts=2),
+            maintenance=MaintenanceParams(insert_chunk=64, delete_chunk=64, **mkw))
+
+    scenarios = {
+        "local": params(1024, strategy="local"),
+        "rwalk": params(1024, strategy="rwalk"),
+        "mask": params(1024, strategy="mask", consolidate_threshold=0.15),
+        "grow": params(256, strategy="global", max_capacity=2048),
+    }
+    out = {}
+    for i, (name, p) in enumerate(scenarios.items()):
+        rng = np.random.default_rng(10 + i)
+        s = Session(p, seed=i, device=device)
+        res = {"ins0": s.insert(rng.integers(-4, 5, (512, 32)).astype(np.float32)).result()}
+        alive = set(res["ins0"].tolist())
+        for rnd in range(2):
+            res[f"q{rnd}"] = s.query(rng.integers(-4, 5, (128, 32)).astype(np.float32),
+                                     k=10).result()
+            ins = s.insert(rng.integers(-4, 5, (128, 32)).astype(np.float32)).result()
+            res[f"ins{rnd + 1}"] = ins
+            alive |= set(ins[ins >= 0].tolist())
+            dels = rng.choice(sorted(alive), 128, replace=False).astype(np.int32)
+            s.delete(dels)
+            alive -= set(dels.tolist())
+            s.flush()
+        if name == "mask":
+            s.refine(n=256)
+            s.flush()
+        t = s.timers
+        res["counters"] = np.array([t.n_consolidations, t.n_grows, t.n_refines,
+                                    s.state.capacity])
+        res["state"] = graph_state_to_numpy(s.state)
+        out[name] = res
+    return out
+
+
 def _flatten(obj, prefix=""):
     if isinstance(obj, dict):
         for k, v in obj.items():
@@ -348,14 +495,20 @@ def phase_parity() -> dict:
     import numpy as np
     t0 = time.perf_counter()
     gpu = dict(_flatten({"session": run_parity_session("cuda"),
-                         "build": run_parity_build("cuda")}))
+                         "build": run_parity_build("cuda"),
+                         "maint": run_parity_maint("cuda")}))
     t1 = time.perf_counter()
     cpu = dict(_flatten({"session": run_parity_session("cpu"),
-                         "build": run_parity_build("cpu")}))
+                         "build": run_parity_build("cpu"),
+                         "maint": run_parity_maint("cpu")}))
     t2 = time.perf_counter()
     check(gpu.keys() == cpu.keys(), "parity: result keys differ")
     bad = [k for k in gpu if not np.array_equal(gpu[k], cpu[k])]
     check(not bad, f"parity: card and CPU differ in {bad}")
+    # the maintenance each scenario exists for really fired
+    mask, grow = gpu["maint.mask.counters"], gpu["maint.grow.counters"]
+    check(mask[0] >= 1 and mask[2] == 1, "parity: MASK session did not consolidate/refine")
+    check(grow[1] >= 1 and grow[3] > 256, "parity: armed session did not grow")
     return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1)
 
 
@@ -455,12 +608,189 @@ def phase_sift1m(torch, n_base: int, rounds: int, per_round: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the maintenance path: the paper's §6 protocol at SIFT1M scale
+# ---------------------------------------------------------------------------
+
+MAINT_ORDER = ("pure", "global", "rwalk", "local", "rebuild", "mask")
+
+
+def _clone_state(state):
+    from repro_torch.core.graph import DATA_FIELDS
+    return dataclasses.replace(
+        state, **{f: getattr(state, f).clone() for f in DATA_FIELDS})
+
+
+def _verify_session(torch, sess, acked: dict, name: str) -> None:
+    """Acked inserts alive and bit-exact, size == alive.sum(), health."""
+    import numpy as np
+
+    from repro_torch.core.health import check_health
+    st = sess.state
+    keep = np.array(sorted(acked), np.int64)
+    idx = torch.as_tensor(keep, device=st.device)
+    check(bool(st.alive[idx].all()), f"{name}: an acked insert is not alive")
+    rows = st.vectors[idx].cpu().numpy()
+    check(np.array_equal(rows, np.stack([acked[j] for j in keep.tolist()])),
+          f"{name}: an acked insert's row differs from the inserted vector")
+    check(int(st.size) == int(st.alive.sum()), f"{name}: size != alive.sum()")
+    errs = check_health(st)
+    check(not errs, f"{name}: health check: {errs}")
+
+
+def _query_step(torch, sess, Q, rec: dict, name: str) -> None:
+    """One timed query op of all of Q, its reported ids checked alive, and
+    recall@10 against the exact top-k of the same state."""
+    from repro_torch.core import metrics
+    from repro_torch.core.graph import NULL
+    sync()
+    t = time.perf_counter()
+    ids, _ = sess.query(Q, k=10).result()
+    rec["query_s"] += time.perf_counter() - t
+    live = sess.state.alive.cpu().numpy()
+    check(bool(live[ids[ids != NULL]].all()), f"{name}: a query reported a non-alive id")
+    _, true_ids = sess.ground_truth(Q, 10)
+    found = torch.as_tensor(ids).to(true_ids.device)
+    rec["recall10"].append(float(metrics.recall_at_k(found, true_ids, 10)))
+
+
+def phase_maint(torch, n_base: int, per_step: int, steps: int,
+                n_queries: int) -> dict:
+    """PURE, GLOBAL, RWALK, LOCAL, ReBuild and MASK each on a copy of one
+    bulk-built state (the base and one working copy on the card at a time),
+    ``steps`` steps of deleting the oldest cluster span and inserting the
+    next one, 1,000 queries after each step."""
+    import numpy as np
+
+    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session
+    from repro_torch.core.graph import DATA_FIELDS, NULL
+    from repro_torch.core.rebuild import bulk_knn_build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.data.workload import make_workload
+    from repro_torch.kernels import ops as kops
+
+    t = time.perf_counter()
+    wl = make_workload("sift", n_base=n_base, n_steps=steps, batch_size=per_step,
+                       n_queries=n_queries, pattern="clustered", seed=0)
+    extra = make_dataset("sift", per_step, seed=7)    # the step after the grow
+    out = {"n_base": n_base, "per_step": per_step, "steps": steps,
+           "n_queries": n_queries, "data_s": time.perf_counter() - t}
+    capacity = 1 << max(10, (n_base + steps * per_step - 1).bit_length())
+    base_params = IndexParams(
+        capacity=capacity, dim=128, d_out=32, d_in=64,
+        search=SearchParams(pool_size=64, max_steps=128, num_starts=2),
+        maintenance=MaintenanceParams(insert_chunk=64, delete_chunk=64))
+    Q = wl.queries
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()                       # the maint path starts here
+    t = time.perf_counter()
+    base = bulk_knn_build(wl.base, np.ones(n_base, bool), base_params, k_nn=64)
+    sync()
+    out["build_s"] = time.perf_counter() - t
+    n_items = steps * per_step
+    per_strategy = {}
+    for name in MAINT_ORDER:
+        strategy = "pure" if name == "rebuild" else name
+        params = dataclasses.replace(base_params, maintenance=dataclasses.replace(
+            base_params.maintenance, strategy=strategy))
+        sess = Session(params, state=_clone_state(base), seed=0)
+        id_map = list(range(n_base))            # pool position -> graph id
+        acked = {}
+        rec = {"delete_s": 0.0, "insert_s": 0.0, "query_s": 0.0, "recall10": []}
+        for step in range(steps):
+            gids = np.asarray([id_map[p] for p in wl.step_deletes[step]], np.int32)
+            sync()
+            t = time.perf_counter()
+            sess.delete(gids)
+            sess.flush()
+            rec["delete_s"] += time.perf_counter() - t
+            for j in gids.tolist():
+                acked.pop(j, None)
+            t = time.perf_counter()
+            new = sess.insert(wl.step_inserts[step]).result()
+            rec["insert_s"] += time.perf_counter() - t
+            check(bool((new != NULL).all()), f"{name}: an insert was refused")
+            id_map += new.tolist()
+            acked.update(zip(new.tolist(), wl.step_inserts[step]))
+            if name == "rebuild":
+                before = torch.nonzero(sess.state.alive).flatten().cpu().numpy()
+                sess.rebuild_from_alive()
+                remap = np.full(sess.state.capacity, NULL, np.int64)
+                remap[before] = np.arange(before.shape[0])
+                id_map = [int(remap[j]) if j >= 0 else NULL for j in id_map]
+                acked = {int(remap[j]): v for j, v in acked.items()}
+            _query_step(torch, sess, Q, rec, name)
+        _verify_session(torch, sess, acked, name)
+        if name == "mask":
+            check(int(sess.state.masked.sum()) == n_items,
+                  "mask: tombstones before consolidation")
+            sync()
+            t = time.perf_counter()
+            rec["n_consolidated"] = sess.consolidate()
+            sess.flush()
+            rec["consolidate_s"] = time.perf_counter() - t
+            check(int(sess.state.masked.sum()) == 0, "mask: a tombstone survived consolidation")
+            _verify_session(torch, sess, acked, "mask after consolidate")
+            _query_step(torch, sess, Q, rec, name)
+            del base                            # the grow holds old and new
+            torch.cuda.empty_cache()
+            old = sess.state
+            t = time.perf_counter()
+            sess.grow(2 * capacity)
+            sync()
+            rec["grow_s"] = time.perf_counter() - t
+            # old slots byte-equal; the new ones are held empty by the
+            # health checks that follow the next insert
+            grown = sess.state
+            for f in DATA_FIELDS:
+                a, b = getattr(old, f), getattr(grown, f)
+                check(torch.equal(b[:capacity] if a.dim() else b, a),
+                      f"grow: {f} changed in the old slots")
+            del old, grown, a, b
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            new = sess.insert(extra).result()
+            rec["insert_after_grow_s"] = time.perf_counter() - t
+            check(bool((new != NULL).all()), "mask: an insert after the grow was refused")
+            acked.update(zip(new.tolist(), extra))
+            _query_step(torch, sess, Q, rec, name)
+            _verify_session(torch, sess, acked, "mask after grow")
+            rec["capacity_after_grow"] = sess.state.capacity
+        if name == "local":
+            sync()
+            t = time.perf_counter()
+            rec["n_refined"] = sess.refine(n=4096)
+            sess.flush()
+            rec["refine_s"] = time.perf_counter() - t
+            _verify_session(torch, sess, acked, "local after refine")
+            _query_step(torch, sess, Q, rec, name)
+        rec["items_per_s"] = {op: n_items / rec[f"{op}_s"]
+                              for op in ("delete", "insert")}
+        rec["items_per_s"]["query"] = len(rec["recall10"]) * Q.shape[0] / rec["query_s"]
+        rec["rebuild_s"] = sess.timers.rebuild_s
+        per_strategy[name] = rec
+        emit({"maint_strategy": name, **rec})
+        del sess
+        torch.cuda.empty_cache()
+    sync()
+    out["launches"] = dict(kops.launches)      # the maint path ends here
+    out["strategies"] = per_strategy
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for kname in ("gather_scores", "score_topk", "score_matrix"):
+        check(out["launches"][kname] > 0, f"kernel {kname} was not launched on the maint path")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,parity,sift1m")
+    ap.add_argument("--phases", default="build,kernels,parity,sift1m,maint")
     ap.add_argument("--n-base", type=int, default=1_000_000)
-    ap.add_argument("--rounds", type=int, default=4)
+    # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
+    # near half its time limit (PERF.md §4)
+    ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--per-round", type=int, default=2048)
+    ap.add_argument("--maint-steps", type=int, default=2)
+    ap.add_argument("--maint-queries", type=int, default=1000)
     args = ap.parse_args(argv)
 
     try:
@@ -488,7 +818,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift = {}
+    sift, maint = {}, {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -504,9 +834,21 @@ def main(argv=None) -> int:
         if "sift1m" in phases:
             if args.n_base != 1_000_000 or args.rounds != 4 or args.per_round != 2048:
                 emit({"reduced": {"n_base": args.n_base, "rounds": args.rounds,
-                                  "per_round": args.per_round}})
+                                  "per_round": args.per_round,
+                                  "of": {"n_base": 1_000_000, "rounds": 4,
+                                         "per_round": 2048}}})
             sift = phase_sift1m(torch, args.n_base, args.rounds, args.per_round)
             emit({"phase": "sift1m", "card": smi, **sift})
+            torch.cuda.empty_cache()
+        if "maint" in phases:
+            if (args.n_base != 1_000_000 or args.per_round != 2048
+                    or args.maint_steps != 2 or args.maint_queries != 1000):
+                emit({"reduced": {"n_base": args.n_base, "per_step": args.per_round,
+                                  "maint_steps": args.maint_steps,
+                                  "maint_queries": args.maint_queries}})
+            maint = phase_maint(torch, args.n_base, args.per_round, args.maint_steps,
+                                args.maint_queries)
+            emit({"phase": "maint", "card": smi, **maint})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -517,6 +859,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "tpu_source": meta["replaces"],
             "launches": sift.get("launches", {}).get(name, 0),
+            "launches_maint": maint.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops as kernel_ops
+
 NEG_INF = float("-inf")
 
 
@@ -48,11 +50,9 @@ def scores_vs_rows(rows: torch.Tensor, row_sqnorms: torch.Tensor,
 def score_matrix(x: torch.Tensor, x_sqnorms: torch.Tensor, q: torch.Tensor,
                  metric: str) -> torch.Tensor:
     """[..., b, m] score matrix of queries ``q [..., b, d]`` against rows
-    ``x [..., m, d]`` (batched over leading axes)."""
-    dots = q.float() @ x.float().transpose(-1, -2)
-    if metric == "l2":
-        return 2.0 * dots - x_sqnorms[..., None, :]
-    return dots
+    ``x [..., m, d]`` (one leading batch axis at most): the hand-written
+    ``score_matrix`` kernel on a CUDA tensor, its plain version on a CPU one."""
+    return kernel_ops.score_matrix(x, x_sqnorms, q, metric=metric)
 
 
 def true_l2(score: torch.Tensor, q_sqnorm: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,13 @@ Invariants (checked by :func:`repro_torch.core.health.check_health`):
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.stable import argmax_first, set_drop
+from repro_torch.core.stable import argmax_first, scatter_max_, set_drop
 
 NULL = -1
 
@@ -122,6 +123,48 @@ def graph_state_from_numpy(arrays: dict, *, capacity: int, dim: int,
 def graph_state_to_numpy(state: GraphState) -> dict:
     """Field name → numpy array (host copies)."""
     return {f: getattr(state, f).cpu().numpy() for f in DATA_FIELDS}
+
+
+# ---------------------------------------------------------------------------
+# Capacity growth — the move between capacity tiers (``repro.core.graph``)
+# ---------------------------------------------------------------------------
+
+_FILL = {"vectors": 0.0, "sqnorms": 0.0, "codes": 0, "scales": 0.0,
+         "adj": NULL, "radj": NULL, "alive": False, "present": False,
+         "stamps": -1, "touch": -1}
+
+
+def grow_state(state: GraphState, new_capacity: int) -> GraphState:
+    """A new state of ``new_capacity`` slots: existing slots keep their ids
+    and bytes, new slots are empty (zero rows, NULL adjacency, not alive,
+    not present), so the allocator sees them free and traversals never
+    reach them. ``size``/``clock``/``tclock`` are shared, not copied."""
+    cap = state.capacity
+    if new_capacity < cap:
+        raise ValueError(f"grow_state cannot shrink: {cap} -> {new_capacity}")
+    if new_capacity == cap:
+        return state
+    extra = new_capacity - cap
+    grown = {}
+    for name, fill in _FILL.items():
+        t = getattr(state, name)
+        pad = torch.full((extra, *t.shape[1:]), fill, dtype=t.dtype,
+                         device=t.device)
+        grown[name] = torch.cat([t, pad])
+    return dataclasses.replace(state, **grown, capacity=new_capacity)
+
+
+def next_capacity_tier(capacity: int, needed: int, growth_factor: float,
+                       max_capacity: int | None) -> int:
+    """Smallest geometric tier ``capacity · growth_factor^k`` (ceil) that
+    holds ``needed`` slots, clipped to ``max_capacity``; the current
+    capacity when it already does or growth is capped out."""
+    new = capacity
+    while new < needed and (max_capacity is None or new < max_capacity):
+        new = max(math.ceil(new * growth_factor), new + 1)
+    if max_capacity is not None:
+        new = min(new, max_capacity)
+    return max(new, capacity)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +302,42 @@ def scrub_edges_to(state: GraphState, dead: torch.Tensor) -> GraphState:
         hit = (t != NULL) & dead[t.clamp(min=0).long()]
         t.masked_fill_(hit | dead[:, None], NULL)
     return state
+
+
+def free_slots(state: GraphState, ids: torch.Tensor, valid: torch.Tensor
+               ) -> GraphState:
+    """Mark slots fully removed (not present, not alive), scrub their codes
+    and stamps, and drop ``size`` by the valid lanes that hit an alive slot
+    (per lane, as JAX counts) — in place."""
+    safe = torch.where(valid, ids, 0).long()
+    n_freed = (valid & state.alive[safe]).sum(dtype=torch.int32)
+    freed = scatter_max_(torch.zeros((state.capacity,), dtype=torch.bool,
+                                      device=state.device), safe, valid)
+    state.alive &= ~freed
+    state.present &= ~freed
+    state.codes.masked_fill_(freed[:, None], 0)
+    state.scales.masked_fill_(freed, 0.0)
+    state.stamps.masked_fill_(freed, -1)
+    state.touch.masked_fill_(freed, -1)
+    state.size -= n_freed
+    return state
+
+
+def mask_to_slots(mask: torch.Tensor, n: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ≤ n lowest set positions of ``mask``, ascending, in a fixed
+    frame: (ids i32[n] NULL padded, valid bool[n]). JAX takes a top-k over
+    negated ids; a running count of the set positions gives the same frame
+    without a sort or a host sync."""
+    dev = mask.device
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    take = mask & (rank < n)
+    # lanes that do not take write to a spare last entry, dropped below
+    buf = torch.full((n + 1,), NULL, dtype=torch.int32, device=dev)
+    buf.scatter_(0, torch.where(take, rank, n),
+                 torch.arange(mask.shape[0], dtype=torch.int32, device=dev))
+    valid = torch.arange(n, device=dev) < take.sum()
+    return torch.where(valid, buf[:n], NULL), valid
 
 
 def graph_stats(state: GraphState) -> dict[str, torch.Tensor]:

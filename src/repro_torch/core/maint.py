@@ -1,0 +1,112 @@
+"""Maintenance-op registry — ``repro.core.maint``.
+
+Every background maintenance pass (consolidate, grow, refine, and the
+two-tier merge) declares once: its isolated PRNG key stream (so firing it
+never shifts the op-key chain), its journal record code and replay hook,
+the host counter that dedups it on replay, and its ``PhaseTimers`` fields.
+The codes and stream ids are frozen at the JAX package's values, so
+journals can later cross between the packages. The replay hooks call
+public session methods only; the journal that would call them, and the
+checkpoint extras and crash points of the JAX registry, wait for the
+durability slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import prng
+
+OP_CONSOLIDATE = 4
+OP_REFINE = 5
+
+JR_CONSOLIDATE = 18
+JR_GROW = 19
+JR_MERGE = 20
+JR_REFINE = 21
+
+CONSOLIDATE_KEY_STREAM = 0x7FFFFFFF
+MERGE_KEY_STREAM = 0x7FFFFFFE
+REFINE_KEY_STREAM = 0x7FFFFFFD
+
+
+@dataclasses.dataclass(frozen=True)
+class MaintOp:
+    """Declarative record of one maintenance op's cross-layer obligations;
+    ``replay(session, record) -> bool`` re-executes a journaled call (False
+    when the restored counters already cover it)."""
+
+    name: str
+    tier: str  # "session" | "tiered"
+    journal_code: int
+    replay: Callable[[Any, Any], bool]
+    op_code: int | None = None
+    key_stream: int | None = None
+    counter_attr: str | None = None
+    time_field: str | None = None
+    count_field: str | None = None
+
+
+def maint_key(base_key: torch.Tensor, op: MaintOp, counter: int
+              ) -> torch.Tensor:
+    """``fold_in(fold_in(base, op.key_stream), counter)`` — isolated from
+    the op-key chain, which folds the op counter directly."""
+    if op.key_stream is None:
+        raise ValueError(f"maintenance op {op.name!r} declares no key stream")
+    return prng.fold_in(prng.fold_in(base_key, op.key_stream), counter)
+
+
+def _replay_consolidate(sess: Any, rec: Any) -> bool:
+    if rec.cseq < sess._consolidate_counter:
+        return False
+    sess.consolidate(strategy=rec.aux.get("strategy"), chunk=rec.aux.get("chunk"))
+    return True
+
+
+def _replay_grow(sess: Any, rec: Any) -> bool:
+    target = int(rec.aux["new_capacity"])
+    if target <= sess.state.capacity:
+        return False
+    sess.grow(target)
+    return True
+
+
+def _replay_refine(sess: Any, rec: Any) -> bool:
+    if rec.cseq < sess._refine_counter:
+        return False
+    sess.refine(n=rec.aux.get("n"), chunk=rec.aux.get("chunk"))
+    return True
+
+
+def _replay_merge(sess: Any, rec: Any) -> bool:
+    if rec.cseq < sess._merges_done:
+        return False
+    sess.merge()
+    return True
+
+
+CONSOLIDATE = MaintOp(
+    name="consolidate", tier="session", journal_code=JR_CONSOLIDATE,
+    replay=_replay_consolidate, op_code=OP_CONSOLIDATE,
+    key_stream=CONSOLIDATE_KEY_STREAM, counter_attr="_consolidate_counter",
+    time_field="consolidate_s", count_field="n_consolidations")
+
+GROW = MaintOp(
+    name="grow", tier="session", journal_code=JR_GROW, replay=_replay_grow,
+    time_field="grow_s", count_field="n_grows")
+
+REFINE = MaintOp(
+    name="refine", tier="session", journal_code=JR_REFINE,
+    replay=_replay_refine, op_code=OP_REFINE, key_stream=REFINE_KEY_STREAM,
+    counter_attr="_refine_counter", time_field="refine_s",
+    count_field="n_refines")
+
+MERGE = MaintOp(
+    name="merge", tier="tiered", journal_code=JR_MERGE, replay=_replay_merge,
+    key_stream=MERGE_KEY_STREAM, counter_attr="_merges_done",
+    time_field="merge_s", count_field="n_merges")
+
+REGISTRY: tuple[MaintOp, ...] = (CONSOLIDATE, GROW, REFINE, MERGE)
+SESSION_OPS: tuple[MaintOp, ...] = tuple(o for o in REGISTRY if o.tier == "session")

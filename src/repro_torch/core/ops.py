@@ -5,7 +5,9 @@ A mixed stream is chopped into :class:`OpBatch` micro-batches of one shape;
 values. JAX compiles one ``lax.switch`` program over the branches; eager
 PyTorch needs no switch, so the branch is chosen on the host from the
 batch's op code. Update branches modify the state in place where the JAX
-step takes it donated.
+step takes it donated. The maintenance branches (OP_CONSOLIDATE,
+OP_REFINE) are operand-free: each picks its own slots at its stream
+position, and their codes come from the registry in ``core/maint.py``.
 """
 from __future__ import annotations
 
@@ -14,18 +16,19 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import consolidate as consolidate_mod
 from repro_torch.core import delete as delete_mod
 from repro_torch.core import insert as insert_mod
+from repro_torch.core import refine as refine_mod
 from repro_torch.core import search
-from repro_torch.core.graph import NULL, GraphState
+from repro_torch.core.graph import NULL, GraphState, mask_to_slots
+from repro_torch.core.maint import OP_CONSOLIDATE, OP_REFINE
 from repro_torch.core.params import IndexParams
 
 OP_QUERY = 0
 OP_INSERT = 1
 OP_DELETE = 2
 OP_NOOP = 3
-OP_CONSOLIDATE = 4
-OP_REFINE = 5
 
 OP_NAMES = {OP_QUERY: "query", OP_INSERT: "insert", OP_DELETE: "delete",
             OP_NOOP: "noop", OP_CONSOLIDATE: "consolidate",
@@ -94,9 +97,16 @@ def apply_ops(state: GraphState, batch: OpBatch, key: torch.Tensor,
     elif code == OP_DELETE:
         delete_mod.delete_batch(state, batch.ids, batch.valid, key, strategy,
                                 params)
-    elif code in (OP_CONSOLIDATE, OP_REFINE):
-        raise NotImplementedError(
-            f"{OP_NAMES[code]} is not ported to repro_torch yet")
+    elif code == OP_CONSOLIDATE:
+        # the B lowest-id tombstones at this stream position
+        tomb, tv = mask_to_slots(state.masked, B)
+        consolidate_mod.consolidate_chunk_impl(state, tomb, tv, key, params)
+        ids[:, 0] = tomb
+    elif code == OP_REFINE:
+        # the B stalest alive slots at this stream position
+        tgt, tv = refine_mod.stalest_slots(state, B)
+        refine_mod.refine_chunk_impl(state, tgt, tv, key, params)
+        ids[:, 0] = tgt
     elif code != OP_NOOP:
         raise ValueError(f"unknown op code {code}")
     return state, ids, scores

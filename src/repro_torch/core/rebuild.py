@@ -1,4 +1,10 @@
-"""Bulk construction from an exact kNN — ``repro.core.rebuild.bulk_knn_build``.
+"""Graph construction — ``repro.core.rebuild``.
+
+``build_graph`` is the paper's incremental constructor: chunked batch
+inserts, each chunk searching the graph built so far.
+
+``bulk_knn_build`` builds from an exact kNN, for the ReBuild baseline and
+large indexes.
 
 JAX forms the dense ``[n, n]`` score matrix and vmaps SELECT-NEIGHBORS over
 all n rows; at n = 10^6 that matrix alone is 4 TB. The port takes the kNN
@@ -14,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import distances, quantize, select
+from repro_torch.core import distances, insert, prng, quantize, select
 from repro_torch.core.graph import NULL, GraphState, init_graph
 from repro_torch.core.params import IndexParams
 from repro_torch.kernels import ops as kernel_ops
@@ -45,13 +51,32 @@ def exact_knn(vecs: torch.Tensor, sq: torch.Tensor, rows: torch.Tensor,
     return out
 
 
+def build_graph(vectors, key: torch.Tensor, params: IndexParams,
+                chunk: int = 64, device=None) -> GraphState:
+    """Incremental construction: chunk ``i`` of ``vectors`` is inserted with
+    ``fold_in(key, i)`` against the graph built so far."""
+    dev = resolve_device(device)
+    vecs = torch.as_tensor(np.asarray(vectors, np.float32)).to(dev)
+    state = init_graph(params.capacity, params.dim, d_out=params.d_out,
+                       d_in=params.eff_d_in, metric=params.metric, device=dev)
+    n = vecs.shape[0]
+    for i, lo in enumerate(range(0, n, chunk)):
+        part = torch.zeros((chunk, vecs.shape[1]), dtype=torch.float32,
+                           device=dev)
+        part[:min(chunk, n - lo)] = vecs[lo:lo + chunk]
+        valid = torch.arange(chunk, device=dev) < (n - lo)
+        insert.insert_batch(state, part, valid, prng.fold_in(key, i), params)
+    return state
+
+
 def bulk_knn_build(vectors, valid, params: IndexParams, k_nn: int = 64,
                    device=None) -> GraphState:
     """Exact-kNN bulk build into a fresh state of ``params.capacity`` slots:
-    rows ``[0, n)`` take ``vectors`` where ``valid``."""
+    rows ``[0, n)`` take ``vectors`` where ``valid`` (numpy arrays or
+    tensors)."""
     dev = resolve_device(device)
-    vecs = torch.as_tensor(np.asarray(vectors, np.float32)).to(dev)
-    valid = torch.as_tensor(np.asarray(valid, bool)).to(dev)
+    vecs = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
+    valid = torch.as_tensor(valid, dtype=torch.bool).to(dev)
     n, dim = vecs.shape
     state = init_graph(params.capacity, dim, d_out=params.d_out,
                        d_in=params.eff_d_in, metric=params.metric, device=dev)

@@ -4,8 +4,9 @@ Port of ``repro.core.select``: scan candidates in order of proximity to
 ``x``; keep ``y`` iff ``f(y, x) >= f(y, z)`` for every already-selected
 ``z`` (both scored with y in the query role, so the norm offsets cancel).
 JAX vmaps a ``fori_loop`` over candidates per row; here the scan is a loop
-over candidate rank, vectorised across all rows at once. The pair matrix
-is a plain fp32 product, as in JAX.
+over candidate rank, vectorised across all rows at once. The ``[R, n, n]``
+pair matrix goes through ``distances.score_matrix``: one launch of the
+hand-written ``score_matrix`` kernel for all R rows on the card.
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 The paper evaluates on SIFT (d=128), GloVe200 (d=200), NYTimes (d=256) and
 GIST (d=960); the raw files are not in the repository, so these surrogates
 stand in: SIFT/GIST as near-uniform Gaussian clouds, GloVe/NYTimes as skewed
-Gaussian mixtures. ``make_dataset`` draws the same numpy arrays as the JAX
-package's generator for the same arguments.
+Gaussian mixtures. ``make_dataset`` and ``kmeans`` give the same numpy
+arrays as the JAX package's for the same arguments.
 """
 from __future__ import annotations
 
@@ -45,3 +45,27 @@ def make_dataset(
     comp = rng.choice(n_comp, size=n, p=weights)
     out = centers[comp] + rng.normal(size=(n, d)) * scales[comp][:, None]
     return out.astype(np.float32)
+
+
+def kmeans(x: np.ndarray, k: int, *, iters: int = 12, seed: int = 0
+           ) -> np.ndarray:
+    """Tiny k-means (labels only) for the clustered-update pattern (§6)."""
+    rng = np.random.default_rng(seed)
+    centers = x[rng.choice(x.shape[0], size=k, replace=False)].copy()
+    labels = np.zeros(x.shape[0], np.int64)
+    for _ in range(iters):
+        # ||x - c||^2 = ||x||^2 - 2 x·c + ||c||^2 (chunked to bound memory)
+        cn = (centers**2).sum(1)
+        new_labels = np.empty_like(labels)
+        for lo in range(0, x.shape[0], 65536):
+            blk = x[lo:lo + 65536]
+            d2 = cn[None, :] - 2.0 * blk @ centers.T
+            new_labels[lo:lo + 65536] = d2.argmin(1)
+        if (new_labels == labels).all():
+            break
+        labels = new_labels
+        for j in range(k):
+            m = labels == j
+            if m.any():
+                centers[j] = x[m].mean(0)
+    return labels

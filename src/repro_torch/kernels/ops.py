@@ -22,7 +22,8 @@ TOPK_MAX_K = 128
 TOPK_QUERIES_PER_BLOCK = 16
 TOPK_ROWS_PER_TILE = 64
 
-launches = {"gather_scores": 0, "gather_scores_q8": 0, "score_topk": 0}
+launches = {"gather_scores": 0, "gather_scores_q8": 0, "score_topk": 0,
+            "score_matrix": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,7 +34,13 @@ _SIGNATURES = {
                                             _I, _I, _P],
     ("score_topk", "score_topk_f32"): [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _P],
+    ("score_matrix", "score_matrix_f32"): [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                           _P],
+    ("score_matrix", "score_matrix_bf16"): [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                            _P],
 }
+_SCORE_MATRIX_FN = {torch.float32: "score_matrix_f32",
+                    torch.bfloat16: "score_matrix_bf16"}
 
 
 def reset_launches() -> None:
@@ -165,3 +172,36 @@ def score_topk(x, xsq, q, k: int, *, metric: str = "l2",
     _check(rc, "score_topk")
     launches["score_topk"] += 1
     return out_s, out_i
+
+
+def score_matrix(x, xsq, q, *, metric: str = "l2") -> torch.Tensor:
+    """f32 ``[..., B, M]`` scores of queries ``q [..., B, d]`` against rows
+    ``x [..., M, d]``: ``2<q, x> - xsq`` (l2) or ``<q, x>`` (ip/cos). 2-D
+    inputs give one matrix, 3-D inputs one per leading index r. x and q are
+    both f32 or both bf16 (widened on load), accumulation is fp32 (replaces
+    ``repro.kernels.distance_matrix.score_matrix_pallas``)."""
+    _require(x.dim() in (2, 3) and q.dim() == x.dim()
+             and q.shape[:-2] == x.shape[:-2] and q.shape[-1] == x.shape[-1],
+             "score_matrix: x [..., M, d] and q [..., B, d] must match")
+    _require(x.dtype == q.dtype and x.dtype in _SCORE_MATRIX_FN,
+             "score_matrix: x and q must both be f32 or both bf16")
+    _require(xsq.dtype == torch.float32 and xsq.shape == x.shape[:-1],
+             "score_matrix: xsq must be f32[..., M]")
+    _require(len({x.device, xsq.device, q.device}) == 1,
+             "score_matrix: all tensors must be on one device")
+    x, xsq, q = x.contiguous(), xsq.contiguous(), q.contiguous()
+    if x.device.type == "cpu":
+        return ref.score_matrix(x, xsq, q, metric)
+    R = x.shape[0] if x.dim() == 3 else 1
+    M, d = x.shape[-2], x.shape[-1]
+    B = q.shape[-2]
+    out = torch.empty((*x.shape[:-2], B, M), dtype=torch.float32,
+                      device=x.device)
+    if R * B * M == 0:
+        return out
+    rc = _fn("score_matrix", _SCORE_MATRIX_FN[x.dtype])(
+        x.data_ptr(), xsq.data_ptr(), q.data_ptr(), out.data_ptr(), R, B, M,
+        d, METRIC_CODE[metric], _stream())
+    _check(rc, "score_matrix")
+    launches["score_matrix"] += 1
+    return out

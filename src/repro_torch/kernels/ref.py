@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three hand-written kernels.
+"""Plain PyTorch versions of the four hand-written kernels.
 
 Each computes, step by step, the same function as its CUDA kernel and as
 the Pallas kernel it replaces, including the wrapper contract: an id < 0
@@ -43,6 +43,15 @@ def gather_scores_q8(codes, scales, ids, q, metric: str = "l2"
     else:
         out = s * dots
     return torch.where(valid, out, NEG_INF)
+
+
+def score_matrix(x, xsq, q, metric: str = "l2") -> torch.Tensor:
+    """f32 ``[..., B, M]``: ``2<q, x> - xsq`` (l2) or ``<q, x>`` (ip/cos),
+    batched over the leading axes; bf16 inputs are widened to f32 first."""
+    dots = q.float() @ x.float().transpose(-1, -2)
+    if metric == "l2":
+        return 2.0 * dots - xsq.float()[..., None, :]
+    return dots
 
 
 def score_topk(x, xsq, q, k: int, metric: str = "l2",

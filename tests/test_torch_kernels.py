@@ -2,8 +2,9 @@
 wrappers (interpret mode on the CPU), at the sweeps of tests/test_kernels.py:
 its shapes, the grown-tier table sizes {2^k, 2^k+1, 3·2^k}, the edge ids
 -1, N-1 and N, and the three metrics. Scores within rtol 1e-4 / atol 1e-3
-on Gaussian data with the -inf mask exact; byte-equal scores and identical
-top-k ids on integer-valued data."""
+on Gaussian data with the -inf mask exact (``score_matrix``: rtol 2e-4 /
+atol 2e-4·d in fp32, 2e-2 / 2e-2·d in bf16, the Pallas test's own);
+byte-equal scores and identical top-k ids on integer-valued data."""
 import re
 from pathlib import Path
 
@@ -166,6 +167,69 @@ def test_score_topk_n_valid_and_short_tables():
         tops.score_topk(_t(x), _t(xsq), _t(q), tops.TOPK_MAX_K + 1)
 
 
+def _sm_tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 2e-4
+
+
+def _sm_inputs(rng, M, B, d, dtype):
+    x = rng.normal(size=(M, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    jx, jq = jnp.asarray(x, dtype), jnp.asarray(q, dtype)
+    xsq = jnp.sum(jx.astype(jnp.float32) ** 2, 1)
+    tdt = getattr(torch, dtype)
+    tx = _t(jx.astype(jnp.float32)).to(tdt)
+    tq = _t(jq.astype(jnp.float32)).to(tdt)
+    return (jx, xsq, jq), (tx, _t(xsq), tq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,metric", [(s, "l2") for s in SHAPES if s[0] != 64]
+                         + [(SHAPES[1], "ip")])
+def test_score_matrix_matches_pallas(shape, metric, dtype):
+    M, B, d, _ = shape
+    rng = np.random.default_rng(M + 3 * B)
+    (jx, jsq, jq), (tx, tsq, tq) = _sm_inputs(rng, M, B, d, dtype)
+    want = jops.score_matrix(jx, jsq, jq, metric=metric)
+    got = tops.score_matrix(tx, tsq, tq, metric=metric)
+    assert got.dtype == torch.float32 and got.shape == (B, M)
+    tol = _sm_tol(dtype)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol * d)
+
+
+@pytest.mark.parametrize("M", GROWN_TIERS)
+def test_score_matrix_tier_sweep(M):
+    """Grown-tier row counts at B = 13: the Pallas wrapper pads to its
+    blocks and crops; the port's output is exactly [B, M]."""
+    rng = np.random.default_rng(M + 1)
+    (jx, jsq, jq), (tx, tsq, tq) = _sm_inputs(rng, M, 13, 48, "float32")
+    want = jops.score_matrix(jx, jsq, jq)
+    got = tops.score_matrix(tx, tsq, tq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4 * 48)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_score_matrix_batched_rows_and_integer_data(metric):
+    """The 3-D form (one matrix per leading row r, as SELECT-NEIGHBORS calls
+    it) equals per-row 2-D calls, and integer-valued data is byte-equal to
+    the Pallas wrapper."""
+    rng = np.random.default_rng(5)
+    R, n, d = 6, 37, 20
+    x = int_vectors(rng, R * n, d).reshape(R, n, d)
+    xsq = (x * x).sum(-1)
+    got = tops.score_matrix(_t(x), _t(xsq), _t(x), metric=metric)
+    assert got.shape == (R, n, n)
+    for r in range(R):
+        row = tops.score_matrix(_t(x[r]), _t(xsq[r]), _t(x[r]), metric=metric)
+        assert torch.equal(got[r], row)
+        want = jops.score_matrix(jnp.asarray(x[r]), jnp.asarray(xsq[r]),
+                                 jnp.asarray(x[r]), metric=metric)
+        assert (row.numpy() == np.asarray(want)).all()
+    with pytest.raises(ValueError):
+        tops.score_matrix(_t(x), _t(xsq), _t(x[0]))
+
+
 @pytest.mark.parametrize("shape", SHAPES[:2])
 def test_quantize_rows_byte_equal(shape):
     M, _, d, _ = shape
@@ -190,6 +254,9 @@ def test_cpu_tensors_take_the_plain_version():
     q = _t(rng.normal(size=(4, 8)).astype(np.float32))
     tops.gather_scores(x, (x * x).sum(1), ids, q)
     tops.score_topk(x, (x * x).sum(1), q, 3)
+    tops.score_matrix(x, (x * x).sum(1), q)
+    assert set(tops.launches) == {"gather_scores", "gather_scores_q8",
+                                  "score_topk", "score_matrix"}
     assert all(v == 0 for v in tops.launches.values())
 
 

@@ -106,14 +106,17 @@ def test_params_fingerprint_and_dataset_match():
 
 
 def test_session_device_and_unported_features(monkeypatch):
+    """What stays unported raises: the journal, checkpoints and the
+    sequential reference strategies."""
     p = torch_params(_params("global"))
     with pytest.raises(NotImplementedError):
         TSession(p, checkpoint_dir="ckpt", device="cpu")
     with pytest.raises(NotImplementedError):
-        TSession(p, strategy="rwalk", device="cpu")
-    s = TSession(p, device="cpu")
+        TSession(p, journal=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        s.consolidate()
+        TSession(p, strategy="local_reference", device="cpu")
+    for strategy in ("local", "rwalk"):
+        assert TSession(p, strategy=strategy, device="cpu").consolidate() == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TSession(p)                                      # default is cuda

@@ -1,5 +1,5 @@
 """Update paths against ``repro.core`` on integer-valued data, byte for
-byte: batched insert at B=1 and B=64, PURE/MASK/GLOBAL deletes, the bulk
+byte: batched insert at B=1 and B=64, all five delete strategies, the bulk
 edge primitives, and the tie-order helpers that stand in for
 ``lax.top_k`` and ``.at[].set(mode="drop")`` / ``.min`` / ``.max``."""
 import jax
@@ -76,7 +76,7 @@ def test_insert_refuses_when_full():
     assert state_diff(js2, ts, UPDATE_FIELDS) == []
 
 
-@pytest.mark.parametrize("strategy", ["pure", "mask", "global"])
+@pytest.mark.parametrize("strategy", ["pure", "mask", "local", "global", "rwalk"])
 def test_delete_byte_equal(base, strategy):
     js, p, _ = base
     rng = np.random.default_rng(7)
@@ -93,11 +93,15 @@ def test_delete_byte_equal(base, strategy):
     assert state_diff(js2, ts, UPDATE_FIELDS) == []
 
 
-def test_unported_strategies_raise(base):
+@pytest.mark.parametrize("strategy", ["local_reference", "global_reference",
+                                      "rwalk_reference"])
+def test_unported_strategies_raise(base, strategy):
+    """The sequential reference appliers are the one part of the delete
+    module that stays unported."""
     js, p, _ = base
     with pytest.raises(NotImplementedError):
         tdelete.delete_batch(torch_state(js), np.array([1], np.int32),
-                             np.array([True]), prng.prng_key(0), "local",
+                             np.array([True]), prng.prng_key(0), strategy,
                              torch_params(p))
 
 

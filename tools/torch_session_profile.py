@@ -8,12 +8,16 @@ ipgm_ann d = 128 settings, capacity 2^20), then prints one JSON line each:
   recall_budget  recall@10 of 1,000 held-out queries against the walk budget
                  (max_steps 128 / 512 / 2048 at W = 1; W = 4 at 128), with
                  the mean hop count;
-  phases         one op of 64 queries, 64 inserts and 64 GLOBAL deletes,
-                 split into entry-point draw, beam search, select, row
-                 apply and the rest, by synchronised host timers (ms/op);
-  profile        a torch.profiler trace of the same three ops: device time
-                 by kernel name, launches, and the device's busy share of
-                 the wall time.
+  phases         one op of 64 queries, 64 inserts, 64 GLOBAL, LOCAL and
+                 RWALK deletes, one 64-tombstone consolidation chunk (GLOBAL
+                 repair) and one 64-slot refine chunk, split into
+                 entry-point draw, beam search, select, row apply and the
+                 rest, by synchronised host timers (ms/op); the
+                 ``score_matrix`` kernel's share of select is reported
+                 beside them (it is inside select, not added to the sum);
+  profile        a torch.profiler trace of the same ops: device time by
+                 kernel name, launches, and the device's busy share of the
+                 wall time.
 
 The card's name and power limit come first. Needs one CUDA device; imports
 nothing of JAX.
@@ -38,9 +42,13 @@ import torch  # noqa: E402
 from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session  # noqa: E402
 from repro_torch.core import delete as delete_mod  # noqa: E402
 from repro_torch.core import insert as insert_mod  # noqa: E402
-from repro_torch.core import search, select  # noqa: E402
+from repro_torch.core import refine as refine_mod  # noqa: E402
+from repro_torch.core import distances, search, select  # noqa: E402
 from repro_torch.core.rebuild import bulk_knn_build  # noqa: E402
 from repro_torch.data.synthetic import make_dataset  # noqa: E402
+
+
+NESTED = "score_matrix_in_select"   # timed inside "select", not summed
 
 
 def emit(obj) -> None:
@@ -53,9 +61,11 @@ def phase_timers(acc: dict):
     targets = [
         (search, "batch_entry_points", "entry_points"),
         (search, "beam_search", "beam_search"),
-        (select, "select_from_pool", "select"),
+        (select, "select_neighbors", "select"),
+        (distances, "score_matrix", NESTED),
         (insert_mod, "set_out_edges_batch", "apply_rows"),
         (delete_mod, "set_out_edges_batch", "apply_rows"),
+        (refine_mod, "set_out_edges_batch", "apply_rows"),
     ]
     saved = []
     for mod, attr, name in targets:
@@ -122,46 +132,59 @@ def main() -> int:
 
     sess = Session(params, state=state, seed=1)
     rng = np.random.default_rng(0)
+    # sessions of the other strategies share the one state (in place)
+    other = {name: Session(dataclasses.replace(params, maintenance=MaintenanceParams(
+        strategy=name)), state=state, seed=2) for name in ("local", "rwalk", "mask")}
+
+    def delete_with(s, n=64):
+        alive = torch.nonzero(s.state.alive).flatten().cpu().numpy()
+        s.delete(rng.choice(alive, n, replace=False))
+        s.flush()
+
+    def consolidate_all():
+        other["mask"].consolidate()     # GLOBAL repair, 64 tombstones a chunk
+        other["mask"].flush()
+
+    ops = {
+        "query": lambda i: sess.query(queries[64 * i:64 * (i + 1)]).result(),
+        "insert": lambda i: sess.insert(fresh[64 * i:64 * (i + 1)]).result(),
+        "delete_global": lambda i: delete_with(sess),
+        "delete_local": lambda i: delete_with(other["local"]),
+        "delete_rwalk": lambda i: delete_with(other["rwalk"]),
+        "refine": lambda i: (sess.refine(n=64), sess.flush()),
+        "consolidate": None,            # n_ops chunks in one pass
+    }
     sess.query(queries[:64]).result()              # warm-up of every path
+    delete_with(other["mask"], 64 * n_ops)         # tombstones to consolidate
     acc: dict = defaultdict(float)
     totals = {}
     with phase_timers(acc):
-        for name in ("query", "insert", "delete"):
+        for name, fn in ops.items():
             before = dict(acc)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            for i in range(n_ops):
-                sl = slice(64 * i, 64 * (i + 1))
-                if name == "query":
-                    sess.query(queries[sl]).result()
-                elif name == "insert":
-                    sess.insert(fresh[sl]).result()
-                else:
-                    alive = torch.nonzero(sess.state.alive).flatten().cpu().numpy()
-                    sess.delete(rng.choice(alive, 64, replace=False))
-                    sess.flush()
+            if fn is None:
+                consolidate_all()
+            else:
+                for i in range(n_ops):
+                    fn(i)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) / n_ops * 1e3
             part = {k: (acc[k] - before.get(k, 0.0)) / n_ops * 1e3 for k in acc}
             part = {k: v for k, v in part.items() if v > 0}
-            part["other"] = wall - sum(part.values())
+            part["other"] = wall - sum(v for k, v in part.items() if k != NESTED)
             totals[name] = {"ms_per_op": wall, "phases_ms": part}
     emit({"phases": totals, "items_per_op": 64})
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     prof_out = {}
-    for name in ("query", "insert", "delete"):
+    for name, fn in ops.items():
+        if fn is None:
+            delete_with(other["mask"])
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t = time.perf_counter()
-            if name == "query":
-                sess.query(queries[:64]).result()
-            elif name == "insert":
-                sess.insert(fresh[:64]).result()
-            else:
-                alive = torch.nonzero(sess.state.alive).flatten().cpu().numpy()
-                sess.delete(rng.choice(alive, 64, replace=False))
-                sess.flush()
+            consolidate_all() if fn is None else fn(0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         kernels = []
