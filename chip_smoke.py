@@ -11,8 +11,13 @@ Phases, each printing one JSON line:
            main paths' shapes, edge ids and grown-tier table sizes: exact on
            integer-valued data, within the Pallas tests' tolerances on
            Gaussian data (rtol 1e-4 / atol 1e-3; score_matrix 2e-4 / 2e-4·d
-           in fp32, 2e-2 / 2e-2·d in bf16); median times of kernel, plain
-           version and one library call;
+           in fp32, 2e-2 / 2e-2·d in bf16); score_topk at k = 1, 10, 65 and
+           128, B no multiple of its query tile, n_valid inside a row tile,
+           in its single- and multi-split forms; score_matrix's self path
+           (q is x) against its general path and the plain version at
+           n = 1..128; median times of kernel, plain version and one
+           library call (per select shape for score_matrix, and at the bulk
+           build's 16,384-query block for score_topk, with its bound);
   parity   small sessions (GLOBAL, LOCAL, RWALK, MASK with consolidation
            and a refine pass, an armed session that grows) and a bulk build
            run on the card and on the CPU must leave byte-equal state and
@@ -244,25 +249,34 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     del cg, sg, ci, si
 
     # ---- score_topk: ids identical on integer data ----
+    # B = 1,000 is no multiple of the query tile (128, or 64 at k > 70) and
+    # splits the rows; each n_valid below N cuts a row tile inside
+    sms = kops.num_sms(dev)
     Bq, k = 1000, 10
     qi = _int_data(g, (Bq, d), dev)
+    xsq_i = (xi * xi).sum(1)
     for metric in ("l2", "ip"):
-        for (kk, nv) in ((10, N), (65, N - 12345)):
-            gs, gi = kops.score_topk(xi, (xi * xi).sum(1), qi, kk, metric=metric, n_valid=nv)
-            ws, wi = kref.score_topk(xi, (xi * xi).sum(1), qi, kk, metric, nv)
+        for (kk, nv) in ((1, N), (10, N), (65, N - 12345), (128, N - 77)):
+            check(kops.topk_splits(Bq, nv, sms, kk) > 1, "multi-split case")
+            gs, gi = kops.score_topk(xi, xsq_i, qi, kk, metric=metric, n_valid=nv)
+            ws, wi = kref.score_topk(xi, xsq_i, qi, kk, metric, nv)
             check(torch.equal(gi, wi) and torch.equal(gs, ws),
-                  f"score_topk {metric} k={kk}: integer data ids/scores differ")
-    # one split (the bulk build's row blocks: B >= 4·SMs·16 queries)
-    M1 = 1 << 16
-    B1 = 16 * 4 * kops.num_sms(dev)
+                  f"score_topk {metric} k={kk} n_valid={nv}: integer data ids/scores differ")
+    del gs, gi, ws, wi
+    # one split: the query tiles alone cover the SMs four times (the bulk
+    # build's row blocks at large n)
+    M1 = 1 << 12
+    B1 = 128 * 4 * sms
     q1 = _int_data(g, (B1, d), dev)
     x1 = xi[:M1].contiguous()
-    check(kops.topk_splits(B1, M1, kops.num_sms(dev)) == 1, "single-split case")
-    gs, gi = kops.score_topk(x1, (x1 * x1).sum(1), q1, 65)
-    ws, wi = kref.score_topk(x1, (x1 * x1).sum(1), q1, 65, "l2")
-    check(torch.equal(gi, wi) and torch.equal(gs, ws),
-          "score_topk single split: integer data ids/scores differ")
-    del q1, x1, gs, gi, ws, wi
+    for kk in (65, 128):
+        check(kops.topk_splits(B1, M1, sms, kk) == 1, "single-split case")
+        gs, gi = kops.score_topk(x1, (x1 * x1).sum(1), q1, kk, n_valid=M1 - 50)
+        ws, wi = kref.score_topk(x1, (x1 * x1).sum(1), q1, kk, "l2", M1 - 50)
+        check(torch.equal(gi, wi) and torch.equal(gs, ws),
+              f"score_topk single split k={kk}: integer data ids/scores differ")
+        del gs, gi, ws, wi
+    del q1, x1
     # all-negative ip padding case and grown tiers (Gaussian)
     xn = -xg[:123].abs().contiguous()
     qp = torch.randn((9, 64), generator=g, device=dev).abs()
@@ -296,9 +310,15 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
                      ((N * d + N + Bq * d) * 4 + Bq * k * 8) / PEAK_BYTES_PER_S) * 1e3,
         bound_by="operations", max_abs_err=err, id_swaps_near_ties=swaps,
         shape=dict(B=Bq, M=N, d=d, k=k))
-    qb = torch.randn((16384, d), generator=g, device=dev)
+    # the bulk build's block (no single library call: its [16384, 2^20]
+    # score matrix would be 64 GiB)
+    Bb, kb = 16384, 65
+    qb = torch.randn((Bb, d), generator=g, device=dev)
     results["score_topk"]["ms_build_block"] = median_ms(
-        lambda: kops.score_topk(xg, tsq, qb, 65), runs=3, warmup=1)
+        lambda: kops.score_topk(xg, tsq, qb, kb), runs=5, warmup=1)
+    results["score_topk"]["bound_ms_build_block"] = max(
+        2.0 * Bb * N * d / PEAK_FP32_FLOPS,
+        ((N * d + N + Bb * d) * 4 + Bb * kb * 8) / PEAK_BYTES_PER_S) * 1e3
     del qb
     results["score_matrix"] = score_matrix_case(torch, kops, kref, dev, g, xg)
     return results
@@ -335,6 +355,28 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
                        kref.score_matrix(x, sq(x), x), **tol(dtype, d))
             if dtype == torch.float32:
                 errs.append(e)
+    # the self path (q is x; n <= 64) against the general path (q a copy of
+    # x) and the plain version, at every n the self path sizes its tiles by
+    # and past its limit; R = 515 is no multiple of any group of rows
+    self_equals_general = True
+    for n in (1, 8, 31, 32, 33, 64, 96, 128):
+        xi = _int_data(g, (515, n, d), dev)
+        xg3 = torch.randn((515, n, d), generator=g, device=dev)
+        check(kops.is_self_pair(xi, xi) == (n <= kops.SELF_MAX_N)
+              and not kops.is_self_pair(xi, xi.clone()),
+              f"score_matrix n={n}: self-path routing")
+        for metric in ("l2", "ip"):
+            got = kops.score_matrix(xi, sq(xi), xi, metric=metric)
+            check(torch.equal(got, kref.score_matrix(xi, sq(xi), xi, metric))
+                  and torch.equal(got, kops.score_matrix(xi, sq(xi), xi.clone(),
+                                                         metric=metric)),
+                  f"score_matrix self n={n} {metric}: integer data not exact")
+            got = kops.score_matrix(xg3, sq(xg3), xg3, metric=metric)
+            errs.append(_close(got, kref.score_matrix(xg3, sq(xg3), xg3, metric),
+                               **tol(torch.float32, d)))
+            gen = kops.score_matrix(xg3, sq(xg3), xg3.clone(), metric=metric)
+            _close(got, gen, **tol(torch.float32, d))
+            self_equals_general &= bool(torch.equal(got, gen))
     for M, B, dd in ((300, 50, 200), (512, 128, 128), (1000, 17, 960),
                      (257, 33, 100)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -356,11 +398,19 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
             if dtype == torch.float32:
                 errs.append(e)
 
-    ms_by_shape = {}
+    ms_by_shape, general_ms_by_shape, library_ms_by_shape, bound_ms_by_shape = {}, {}, {}, {}
     for R, n in SELECT_SHAPES:
         x = torch.randn((R, n, d), generator=g, device=dev)
         xsq = sq(x)
-        ms_by_shape[f"R{R}_n{n}"] = median_ms(lambda: kops.score_matrix(x, xsq, x))
+        xc = x.clone()
+        key = f"R{R}_n{n}"
+        ms_by_shape[key] = median_ms(lambda: kops.score_matrix(x, xsq, x))
+        general_ms_by_shape[key] = median_ms(lambda: kops.score_matrix(x, xsq, xc))
+        library_ms_by_shape[key] = median_ms(lambda: torch.baddbmm(
+            -xsq[:, None, :], x, x.transpose(1, 2), alpha=2.0))
+        bound_ms_by_shape[key] = max(
+            2.0 * R * n * n * d / PEAK_FP32_FLOPS,
+            (R * n * d + R * n + R * n * n) * 4 / PEAK_BYTES_PER_S) * 1e3
     R, n = 4096, 64                      # the GLOBAL-repair select
     x = torch.randn((R, n, d), generator=g, device=dev)
     xsq = sq(x)
@@ -375,6 +425,10 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         max_abs_err=max(errs), ms_by_shape=ms_by_shape,
+        general_ms_by_shape=general_ms_by_shape,
+        library_ms_by_shape=library_ms_by_shape,
+        bound_ms_by_shape=bound_ms_by_shape,
+        self_equals_general_gaussian=self_equals_general,
         shape=dict(R=R, B=n, M=n, d=d))
 
 

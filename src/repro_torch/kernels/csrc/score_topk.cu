@@ -8,165 +8,277 @@
 //
 // Bound on this card: fp32 operations, 2*B*M*d FLOPs on the CUDA cores (no
 // TF32: the ids must equal the fp32 reference) against (B + M)*d*4 bytes
-// read. The design:
-//   * pass 1 (topk_partial): a block owns 16 queries and one range of rows.
-//     It walks the range in tiles of 64 rows, staging 64-wide slices of the
-//     tile and of the queries through shared memory (the row tile padded by
-//     one word so the 64 lanes reading one column hit 32 distinct banks).
-//     Each thread accumulates 8 query x 1 row dot products in registers.
-//     Scores of rows >= n_valid are -inf.
-//   * each warp then folds the tile's scores into the running top-k lists
-//     of its 4 queries, kept sorted in shared memory: a ballot against the
-//     current k-th entry lets only candidates that can enter pay for an
-//     insertion (a warp-parallel rank count and shift).
-//   * at B = 1000 the query groups alone give ~63 blocks for 132 SMs, so the
-//     rows are split across `splits` blocks per query group; pass 2
-//     (topk_merge) folds the partial lists of each query with the same
-//     insertion and tie rule. With one split pass 1 writes the output.
-// The comparison (score desc, id asc) is a total order on the candidates,
-// so the result does not depend on the order in which they arrive.
+// read; at B = 1,000, M = 2^20, d = 128 that is 4.0 ms of FMA against
+// 0.16 ms of HBM. The design keeps the product near the rate that shared
+// memory lets an fp32 tile reach and makes the top-k cheap beside it:
+//   * product tile: a block owns QT = 128 queries (64 when k > 70, for
+//     shared memory) and walks its row range in tiles of 128 rows. Each of
+//     its 2*QT threads holds an 8 x 8 register micro-tile (queries ty*4+i and
+//     QT/2+ty*4+i, rows tx*4+j and 64+tx*4+j), so 4 float4 shared loads feed
+//     64 FMAs. d is staged in chunks of 16, transposed to [k][row] by 4-byte
+//     cp.async copies (no staging registers; rows padded by 4 floats, so a
+//     warp's copies put at most two on a bank), double-buffered across tile
+//     boundaries: the next chunk is in flight while this one computes, one
+//     __syncthreads per chunk. Launch bounds and shared memory keep two blocks on an SM, so
+//     one block's product hides the other's top-k phase. The query tile
+//     index varies fastest in the grid, so the blocks resident at one time
+//     stream the same rows of x and share them through L2.
+//   * epilogue: xsq arrives with the tile (cp.async); l2 is
+//     __fsub_rn(__fmul_rn(2, acc), xsq) (no contraction, so integer data
+//     stay byte-equal to the plain version); rows at n_valid or above never
+//     become candidates.
+//   * top-k by threshold filter: each query's running top-k stays sorted in
+//     dynamic shared memory sized by the actual k. A thread takes the max
+//     of its 8 scores of a query and, only when that reaches the query's
+//     k-th entry, compares each under the total order (score desc, id asc)
+//     and appends those that beat it to a per-query buffer of 8. Buffers are
+//     folded into the lists only when one overflows (then the tile's
+//     remaining candidates are filtered again against the new thresholds)
+//     and once at the end; a fold merges each buffer in one warp step
+//     (binary search of the list plus a rank count over the buffer). Lists
+//     change only between barriers and only upward, so a threshold is never
+//     higher than the list it guards; an old one only admits extra
+//     candidates. Once a list is full, about k*ln(M/k) candidates per query
+//     pass, so folds are rare after the first tiles.
+//   * splits: at small B the query tiles alone cannot fill 132 SMs, so the
+//     rows are split across `splits` blocks per query tile (ops.topk_splits
+//     picks a count that fills the last wave of resident blocks); pass 2
+//     (topk_merge) merges the partial lists of each query with the same
+//     warp step. With one split pass 1 writes the output.
+// The comparison (score desc, id asc) is a total order on the candidates
+// (ids are unique), so the result does not depend on arrival order.
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int QB = 16;        // queries per block
-constexpr int TM = 64;        // rows per tile
-constexpr int DK = 64;        // dims per staged slice
-constexpr int KMAX = 128;     // largest supported k
-constexpr int THREADS = 128;  // 4 warps; thread t: row t % 64, queries 8*(t/64)..+7
+constexpr int RT = 128;         // rows per tile
+constexpr int DK = 16;          // dims per staged chunk
+constexpr int PAD = 4;          // staged row padding (floats)
+constexpr int CAP = 8;          // candidate buffer per query (<= 32)
+constexpr int KMAX = 128;       // largest supported k
+constexpr int kWideMaxK = 70;   // QT = 128 up to this k, else QT = 64
 
 __device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
   return as > bs || (as == bs && ai < bi);
 }
 
-// Insert (cs, ci) into the sorted list (ls, li) of length k if it beats the
-// k-th entry. Called by all 32 lanes of a warp with the same candidate.
-__device__ __forceinline__ void warp_insert(float* ls, int* li, int k,
-                                            float cs, int ci, int lane) {
-  if (!better(cs, ci, ls[k - 1], li[k - 1])) return;
-  int cnt = 0;
-  for (int e = lane; e < k; e += 32) cnt += better(ls[e], li[e], cs, ci) ? 1 : 0;
+// Merge c <= 32 candidates, one per lane below c ((-inf, -1) in the other
+// lanes), into the sorted list (ls, li) of length k in one step. An element's
+// new place is the number of list entries and candidates better than it
+// (a total order on unique ids, so places are distinct); those at k or
+// beyond drop out. Entries better than a candidate are a prefix of the list,
+// so a binary search counts them.
+__device__ __forceinline__ void warp_merge(float* ls, int* li, int k, float cs,
+                                           int ci, int c, int lane) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (better(ls[mid], li[mid], cs, ci)) lo = mid + 1; else hi = mid;
+  }
+  int pos = lo;
+  float ev[KMAX / 32];
+  int ei[KMAX / 32], pe[KMAX / 32];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-  const int pos = cnt;  // entries strictly better than the candidate
-  float mv[KMAX / 32];
-  int mi[KMAX / 32];
-  int n = 0;
-  for (int e = lane; e < k; e += 32, ++n) {
-    if (e > pos) { mv[n] = ls[e - 1]; mi[n] = li[e - 1]; }
+  for (int n = 0; n < KMAX / 32; ++n) {
+    const int e = lane + 32 * n;
+    ev[n] = e < k ? ls[e] : -INFINITY;
+    ei[n] = e < k ? li[e] : -1;
+    pe[n] = e;
+  }
+  for (int m = 0; m < c; ++m) {
+    const float s = __shfl_sync(0xffffffffu, cs, m);
+    const int i = __shfl_sync(0xffffffffu, ci, m);
+    pos += better(s, i, cs, ci) ? 1 : 0;
+#pragma unroll
+    for (int n = 0; n < KMAX / 32; ++n) pe[n] += better(s, i, ev[n], ei[n]) ? 1 : 0;
   }
   __syncwarp();
-  n = 0;
-  for (int e = lane; e < k; e += 32, ++n) {
-    if (e > pos) { ls[e] = mv[n]; li[e] = mi[n]; }
-    else if (e == pos) { ls[e] = cs; li[e] = ci; }
+#pragma unroll
+  for (int n = 0; n < KMAX / 32; ++n) {
+    if (lane + 32 * n < k && pe[n] < k) { ls[pe[n]] = ev[n]; li[pe[n]] = ei[n]; }
   }
+  if (ci >= 0 && pos < k) { ls[pos] = cs; li[pos] = ci; }
   __syncwarp();
 }
 
-// Offer 32 candidates (one per lane) to a list; only those that beat the
-// current k-th entry at offer time are inserted, in lane order.
-__device__ __forceinline__ void warp_offer(float* ls, int* li, int k,
-                                           float s, int id, int lane) {
-  unsigned mask = __ballot_sync(0xffffffffu, better(s, id, ls[k - 1], li[k - 1]));
-  while (mask) {
-    const int src = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const float cs = __shfl_sync(0xffffffffu, s, src);
-    const int ci = __shfl_sync(0xffffffffu, id, src);
-    warp_insert(ls, li, k, cs, ci, lane);
-  }
+// Copy one float from device memory to shared memory without passing it
+// through registers; a copy with valid == false writes 0.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0));
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Dynamic shared memory of topk_partial<QT> at k.
+__host__ __device__ constexpr size_t dyn_bytes(int qt, int k) {
+  return (size_t)qt * k * 8 + (size_t)qt * CAP * 8 + (size_t)qt * 4 + 16;
+}
+
+template <int QT>
+__global__ void __launch_bounds__(2 * QT, 2)
 topk_partial(const float* __restrict__ x, const float* __restrict__ xsq,
              const float* __restrict__ q, float* __restrict__ out_s,
-             int* __restrict__ out_i, int M, int d, int B, int k, int n_valid,
+             int* __restrict__ out_i, int d, int B, int k, int m_limit,
              int metric, int rows_per_split) {
-  __shared__ float xs[TM][DK + 1];
-  __shared__ __align__(16) float qs[DK][QB];
-  __shared__ float sc[QB][TM];
-  __shared__ float ls[QB][KMAX];
-  __shared__ int li[QB][KMAX];
+  constexpr int THREADS = 2 * QT;
+  constexpr int NWARPS = THREADS / 32;
+  static_assert(QT * DK % THREADS == 0 && RT * DK % THREADS == 0, "staging");
+  __shared__ __align__(16) float qs[2][DK][QT + PAD];
+  __shared__ __align__(16) float xs[2][DK][RT + PAD];
+  __shared__ __align__(16) float xq[2][RT];     // xsq of the tile (l2)
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* ls = reinterpret_cast<float*>(dyn);          // [QT][k]
+  int* li = reinterpret_cast<int*>(ls + QT * k);        // [QT][k]
+  float* bs = reinterpret_cast<float*>(li + QT * k);    // [QT][CAP]
+  int* bi = reinterpret_cast<int*>(bs + QT * CAP);      // [QT][CAP]
+  int* cnt = bi + QT * CAP;                             // [QT]
+  int* over = cnt + QT;      // last filter pass that found a buffer full
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int r = t % TM;
-  const int qg = (t / TM) * 8;
-  const int b0 = blockIdx.x * QB;
-  const int split = blockIdx.y;
-  const int m_begin = split * rows_per_split;
-  const int m_end = min(M, min(n_valid, m_begin + rows_per_split));
+  const int tx = t % 16;
+  const int ty = t / 16;
+  const int b0 = blockIdx.x * QT;
+  const int m_begin = blockIdx.y * rows_per_split;
+  const int m_end = min(m_limit, m_begin + rows_per_split);
 
-  for (int e = t; e < QB * KMAX; e += THREADS) {
-    (&ls[0][0])[e] = -INFINITY;
-    (&li[0][0])[e] = -1;
+  for (int e = t; e < QT * k; e += THREADS) { ls[e] = -INFINITY; li[e] = -1; }
+  for (int e = t; e < QT; e += THREADS) cnt[e] = 0;
+  if (t == 0) *over = -1;
+  int pass = 0;   // filter passes so far, the same count in every thread
+
+  const int nchunks = (d + DK - 1) / DK;
+  const int ntiles = m_end > m_begin ? (m_end - m_begin + RT - 1) / RT : 0;
+  const int total = ntiles * nchunks;
+
+  // staging: element (row r, dim k0 + t % DK) of each operand tile goes to
+  // s[k][r] by cp.async; a warp reads two rows x 64 bytes
+  auto stage = [&](int step, int buf) {
+    const int m0 = m_begin + (step / nchunks) * RT;
+    const int c = t % DK, gc = (step % nchunks) * DK + c;
+#pragma unroll
+    for (int u = 0; u < QT * DK / THREADS; ++u) {
+      const int r = t / DK + u * (THREADS / DK);
+      const bool ok = gc < d && b0 + r < B;
+      cp_async4(&qs[buf][c][r], ok ? q + (size_t)(b0 + r) * d + gc : q, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < RT * DK / THREADS; ++u) {
+      const int r = t / DK + u * (THREADS / DK);
+      const bool ok = gc < d && m0 + r < m_end;
+      cp_async4(&xs[buf][c][r], ok ? x + (size_t)(m0 + r) * d + gc : x, ok);
+    }
+    if (step % nchunks == 0 && t < RT) {   // a new tile: its xsq too
+      const bool ok = metric == 0 && m0 + t < m_end;
+      cp_async4(&xq[(step / nchunks) & 1][t], ok ? xsq + m0 + t : xsq, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (total > 0) stage(0, 0);
+
+  // merge every query's buffered candidates into its list (warp w takes
+  // queries w, w + NWARPS, ...) and empty the buffers
+  auto fold = [&](int w, int ln) {
+    for (int qi = w; qi < QT; qi += NWARPS) {
+      const int c = min(cnt[qi], CAP);
+      if (c == 0) continue;
+      const bool ok = ln < c;   // c <= CAP <= 32: one merge per list
+      warp_merge(ls + qi * k, li + qi * k, k, ok ? bs[qi * CAP + ln] : -INFINITY,
+                 ok ? bi[qi * CAP + ln] : -1, c, ln);
+      if (ln == 0) cnt[qi] = 0;
+    }
+  };
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int m0 = m_begin + tile * RT;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    for (int c = 0; c < nchunks; ++c) {
+      const int step = tile * nchunks + c;
+      const int buf = step & 1;
+      // this step's chunk has landed, and every thread is done with the
+      // other buffer (read at the previous step): refill it meanwhile
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncthreads();
+      if (step + 1 < total) stage(step + 1, buf ^ 1);
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&qs[buf][kk][ty * 4]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&qs[buf][kk][QT / 2 + ty * 4]);
+        const float4 c0 = *reinterpret_cast<const float4*>(&xs[buf][kk][tx * 4]);
+        const float4 c1 = *reinterpret_cast<const float4*>(&xs[buf][kk][64 + tx * 4]);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bb[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+      }
+    }
+
+    // ---- threshold filter; fold only when a buffer overflowed ----
+    const float4 sq0 = *reinterpret_cast<const float4*>(&xq[tile & 1][tx * 4]);
+    const float4 sq1 = *reinterpret_cast<const float4*>(&xq[tile & 1][64 + tx * 4]);
+    const float sq[8] = {sq0.x, sq0.y, sq0.z, sq0.w, sq1.x, sq1.y, sq1.z, sq1.w};
+    unsigned long long done = 0;   // bit 8i+j: candidate (i, j) is appended
+    for (;;) {
+      ++pass;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qi = i < 4 ? ty * 4 + i : QT / 2 + ty * 4 + i - 4;
+        if (b0 + qi >= B) continue;
+        const float ts = ls[qi * k + k - 1];
+        float s[8], top = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int id = m0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+          s[j] = id >= m_end ? -INFINITY
+                 : metric == 0 ? __fsub_rn(__fmul_rn(2.f, acc[i][j]), sq[j]) : acc[i][j];
+          top = fmaxf(top, s[j]);
+        }
+        if (!(top >= ts)) continue;   // nothing here can beat the k-th entry
+        const int tid = li[qi * k + k - 1];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const unsigned long long bit = 1ull << (8 * i + j);
+          const int id = m0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+          if (id >= m_end || (done & bit) || !better(s[j], id, ts, tid)) continue;
+          const int p = atomicAdd(&cnt[qi], 1);
+          if (p < CAP) {
+            bs[qi * CAP + p] = s[j];
+            bi[qi * CAP + p] = id;
+            done |= bit;
+          } else {
+            *over = pass;
+          }
+        }
+      }
+      __syncthreads();
+      // `over` is final here and is not written again before the next
+      // barrier, so every thread reads the same value
+      if (*over != pass) break;
+      fold(warp, lane);
+      __syncthreads();
+    }
   }
   __syncthreads();
+  fold(warp, lane);
+  __syncthreads();
 
-  for (int m0 = m_begin; m0 < m_end; m0 += TM) {
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += DK) {
-      for (int e = t; e < TM * DK; e += THREADS) {
-        const int row = e / DK, col = e % DK;
-        const int gr = m0 + row, gc = k0 + col;
-        xs[row][col] = (gr < m_end && gc < d) ? x[(size_t)gr * d + gc] : 0.f;
-      }
-      for (int e = t; e < QB * DK; e += THREADS) {
-        const int qi = e / DK, col = e % DK;
-        const int gb = b0 + qi, gc = k0 + col;
-        qs[col][qi] = (gb < B && gc < d) ? q[(size_t)gb * d + gc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < DK; ++kk) {
-        const float xv = xs[r][kk];
-        const float4 qa = *reinterpret_cast<const float4*>(&qs[kk][qg]);
-        const float4 qb = *reinterpret_cast<const float4*>(&qs[kk][qg + 4]);
-        acc[0] = fmaf(xv, qa.x, acc[0]);
-        acc[1] = fmaf(xv, qa.y, acc[1]);
-        acc[2] = fmaf(xv, qa.z, acc[2]);
-        acc[3] = fmaf(xv, qa.w, acc[3]);
-        acc[4] = fmaf(xv, qb.x, acc[4]);
-        acc[5] = fmaf(xv, qb.y, acc[5]);
-        acc[6] = fmaf(xv, qb.z, acc[6]);
-        acc[7] = fmaf(xv, qb.w, acc[7]);
-      }
-      __syncthreads();
-    }
-    const int id = m0 + r;
-    const bool ok = id < m_end;
-    const float sq = (ok && metric == 0) ? xsq[id] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float s = metric == 0 ? __fsub_rn(__fmul_rn(2.f, acc[j]), sq) : acc[j];
-      sc[qg + j][r] = ok ? s : -INFINITY;
-    }
-    __syncthreads();
-    for (int qi = warp * 4; qi < warp * 4 + 4; ++qi) {
-      if (b0 + qi >= B) break;
-#pragma unroll
-      for (int half = 0; half < TM / 32; ++half) {
-        const int j = half * 32 + lane;
-        warp_offer(ls[qi], li[qi], k, sc[qi][j], m0 + j, lane);
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int qi = 0; qi < QB; ++qi) {
+  const int split = blockIdx.y;
+  for (int e = t; e < QT * k; e += THREADS) {
+    const int qi = e / k, j = e % k;
     const int b = b0 + qi;
-    if (b >= B) break;
-    for (int e = t; e < k; e += THREADS) {
-      const size_t o = ((size_t)split * B + b) * k + e;
-      out_s[o] = ls[qi][e];
-      out_i[o] = li[qi][e];
-    }
+    if (b >= B) continue;
+    const size_t o = ((size_t)split * B + b) * k + j;
+    out_s[o] = ls[e];
+    out_i[o] = li[e];
   }
 }
 
@@ -194,12 +306,30 @@ __global__ void topk_merge(const float* __restrict__ part_s,
       s = part_s[o];
       id = part_i[o];
     }
-    warp_offer(ls[w], li[w], k, s, id, lane);
+    warp_merge(ls[w], li[w], k, s, id, min(32, total - base), lane);
   }
   for (int e = lane; e < k; e += 32) {
     out_s[(size_t)b * k + e] = ls[w][e];
     out_i[(size_t)b * k + e] = li[w][e];
   }
+}
+
+template <int QT>
+cudaError_t launch_partial(const float* x, const float* xsq, const float* q,
+                           float* ps, int* pi, int d, int B, int k, int limit,
+                           int metric, int rows_per_split, int splits, cudaStream_t st) {
+  const size_t dyn = dyn_bytes(QT, k);
+  static size_t allowed = 0;   // the largest dynamic size granted so far
+  if (dyn > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        topk_partial<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) return err;
+    allowed = dyn;
+  }
+  dim3 grid((B + QT - 1) / QT, splits);
+  topk_partial<QT><<<grid, 2 * QT, dyn, st>>>(x, xsq, q, ps, pi, d, B, k, limit,
+                                              metric, rows_per_split);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -209,18 +339,20 @@ extern "C" int score_topk_f32(const float* x, const float* xsq, const float* q,
                               int* out_i, int M, int d, int B, int k,
                               int n_valid, int metric, int splits,
                               void* stream) {
-  if (k < 1 || k > KMAX || splits < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > KMAX || splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int limit = min(M, n_valid);
   int rows_per_split = (limit + splits - 1) / splits;
-  rows_per_split = ((rows_per_split + TM - 1) / TM) * TM;
-  if (rows_per_split == 0) rows_per_split = TM;
-  dim3 grid((B + QB - 1) / QB, splits);
+  rows_per_split = ((rows_per_split + RT - 1) / RT) * RT;
+  if (rows_per_split == 0) rows_per_split = RT;
   float* ps = splits == 1 ? out_s : part_s;
   int* pi = splits == 1 ? out_i : part_i;
-  topk_partial<<<grid, THREADS, 0, st>>>(x, xsq, q, ps, pi, M, d, B, k,
-                                         limit, metric, rows_per_split);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      k <= kWideMaxK
+          ? launch_partial<128>(x, xsq, q, ps, pi, d, B, k, limit, metric,
+                                rows_per_split, splits, st)
+          : launch_partial<64>(x, xsq, q, ps, pi, d, B, k, limit, metric,
+                               rows_per_split, splits, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
   topk_merge<<<(B + 3) / 4, 128, 0, st>>>(part_s, part_i, out_s, out_i, B, k,
                                           splits);

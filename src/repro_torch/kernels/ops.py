@@ -19,8 +19,11 @@ from repro_torch.kernels import build, ref
 
 METRIC_CODE = {"l2": 0, "ip": 1, "cos": 1}
 TOPK_MAX_K = 128
-TOPK_QUERIES_PER_BLOCK = 16
-TOPK_ROWS_PER_TILE = 64
+TOPK_WIDE_MAX_K = 70            # csrc/score_topk.cu kWideMaxK
+TOPK_ROWS_PER_TILE = 128        # csrc/score_topk.cu RT
+TOPK_BLOCKS_PER_SM = 2          # resident blocks (launch bounds, shared memory)
+TOPK_MIN_TILES_PER_SPLIT = 8
+SELF_MAX_N = 64                 # csrc/score_matrix.cu self path
 
 launches = {"gather_scores": 0, "gather_scores_q8": 0, "score_topk": 0,
             "score_matrix": 0}
@@ -38,6 +41,7 @@ _SIGNATURES = {
                                            _P],
     ("score_matrix", "score_matrix_bf16"): [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                             _P],
+    ("score_matrix", "score_matrix_self_f32"): [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 _SCORE_MATRIX_FN = {torch.float32: "score_matrix_f32",
                     torch.bfloat16: "score_matrix_bf16"}
@@ -48,10 +52,18 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+_bound: dict = {}
+
+
 def _fn(lib_name: str, fn_name: str):
-    fn = getattr(build.library(lib_name), fn_name)
-    fn.argtypes = _SIGNATURES[(lib_name, fn_name)]
-    fn.restype = ctypes.c_int
+    """The bound C entry point (typed once, then reused: a launch on the
+    main path must not pay for the binding)."""
+    fn = _bound.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(build.library(lib_name), fn_name)
+        fn.argtypes = _SIGNATURES[(lib_name, fn_name)]
+        fn.restype = ctypes.c_int
+        _bound[(lib_name, fn_name)] = fn
     return fn
 
 
@@ -128,13 +140,32 @@ def num_sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def topk_splits(B: int, M: int, sms: int) -> int:
-    """How many row ranges ``score_topk`` splits M into: enough blocks to
-    cover the SMs a few times over when B alone gives too few."""
-    qblocks = -(-B // TOPK_QUERIES_PER_BLOCK)
-    want = -(-4 * sms // qblocks)
-    most = max(1, M // (16 * TOPK_ROWS_PER_TILE))
-    return max(1, min(want, most))
+def topk_query_tile(k: int) -> int:
+    """Queries per ``score_topk`` block: 128, or 64 when the lists of a
+    larger k would not fit in shared memory beside the candidate buffers."""
+    return 128 if k <= TOPK_WIDE_MAX_K else 64
+
+
+def topk_splits(B: int, M: int, sms: int, k: int) -> int:
+    """How many row ranges ``score_topk`` splits M into: one when the query
+    tiles alone cover the SMs four times; else at least enough to do so,
+    and up to twice that where the blocks then fill their last wave of
+    ``TOPK_BLOCKS_PER_SM * sms`` resident blocks better; never less than
+    ``TOPK_MIN_TILES_PER_SPLIT`` row tiles per range."""
+    qtiles = -(-B // topk_query_tile(k))
+    if qtiles >= 4 * sms:
+        return 1
+    most = max(1, M // (TOPK_MIN_TILES_PER_SPLIT * TOPK_ROWS_PER_TILE))
+    want = -(-4 * sms // qtiles)
+    if want >= most:
+        return most
+    slots = TOPK_BLOCKS_PER_SM * sms
+
+    def fill(splits):
+        blocks = qtiles * splits
+        return blocks / (-(-blocks // slots) * slots)
+
+    return max(range(want, min(2 * want, most) + 1), key=fill)
 
 
 def score_topk(x, xsq, q, k: int, *, metric: str = "l2",
@@ -162,7 +193,7 @@ def score_topk(x, xsq, q, k: int, *, metric: str = "l2",
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out_s, out_i
-    splits = topk_splits(B, M, num_sms(dev))
+    splits = topk_splits(B, M, num_sms(dev), k)
     part_s = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
     rc = _fn("score_topk", "score_topk_f32")(
@@ -174,12 +205,26 @@ def score_topk(x, xsq, q, k: int, *, metric: str = "l2",
     return out_s, out_i
 
 
+def is_self_pair(x: torch.Tensor, q: torch.Tensor) -> bool:
+    """Whether ``score_matrix`` takes its self path: q is x (same storage,
+    offset, shape and strides), fp32, at most ``SELF_MAX_N`` candidates,
+    d a positive multiple of 4, 16-byte aligned."""
+    n, d = x.shape[-2], x.shape[-1]
+    return (x.dtype == torch.float32 and q.dtype == torch.float32
+            and x.data_ptr() == q.data_ptr() and x.shape == q.shape
+            and x.stride() == q.stride() and x.is_contiguous()
+            and 1 <= n <= SELF_MAX_N and d >= 4 and d % 4 == 0
+            and x.data_ptr() % 16 == 0)
+
+
 def score_matrix(x, xsq, q, *, metric: str = "l2") -> torch.Tensor:
     """f32 ``[..., B, M]`` scores of queries ``q [..., B, d]`` against rows
     ``x [..., M, d]``: ``2<q, x> - xsq`` (l2) or ``<q, x>`` (ip/cos). 2-D
     inputs give one matrix, 3-D inputs one per leading index r. x and q are
     both f32 or both bf16 (widened on load), accumulation is fp32 (replaces
-    ``repro.kernels.distance_matrix.score_matrix_pallas``)."""
+    ``repro.kernels.distance_matrix.score_matrix_pallas``). When q is x
+    (SELECT-NEIGHBORS' pair matrix) the kernel's self path stages each
+    ``[n, d]`` block once; it gives the same bits as the general path."""
     _require(x.dim() in (2, 3) and q.dim() == x.dim()
              and q.shape[:-2] == x.shape[:-2] and q.shape[-1] == x.shape[-1],
              "score_matrix: x [..., M, d] and q [..., B, d] must match")
@@ -199,9 +244,14 @@ def score_matrix(x, xsq, q, *, metric: str = "l2") -> torch.Tensor:
                       device=x.device)
     if R * B * M == 0:
         return out
-    rc = _fn("score_matrix", _SCORE_MATRIX_FN[x.dtype])(
-        x.data_ptr(), xsq.data_ptr(), q.data_ptr(), out.data_ptr(), R, B, M,
-        d, METRIC_CODE[metric], _stream())
+    if is_self_pair(x, q):
+        rc = _fn("score_matrix", "score_matrix_self_f32")(
+            x.data_ptr(), xsq.data_ptr(), out.data_ptr(), R, M, d,
+            METRIC_CODE[metric], _stream())
+    else:
+        rc = _fn("score_matrix", _SCORE_MATRIX_FN[x.dtype])(
+            x.data_ptr(), xsq.data_ptr(), q.data_ptr(), out.data_ptr(), R, B,
+            M, d, METRIC_CODE[metric], _stream())
     _check(rc, "score_matrix")
     launches["score_matrix"] += 1
     return out

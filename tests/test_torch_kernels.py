@@ -276,3 +276,86 @@ def test_cuda_sources_declare_the_bound_entry_points():
         m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
         assert m, f"{fn} missing from {lib}.cu"
         assert len(m.group(1).split(",")) == len(argtypes), fn
+
+
+@pytest.mark.parametrize("k", [1, 10, 65, 80, 81, 128])
+def test_topk_splits_follow_the_tiling(k):
+    """One split once the query tiles alone cover the SMs four times; at
+    small B enough splits to do so; never more splits than row tiles (and
+    at least ``TOPK_MIN_TILES_PER_SPLIT`` row tiles per split)."""
+    sms = 132
+    qt = tops.topk_query_tile(k)
+    assert qt == (128 if k <= tops.TOPK_WIDE_MAX_K else 64)
+    M = 1 << 20
+    assert tops.topk_splits(qt * 4 * sms, M, sms, k) == 1
+    assert tops.topk_splits(qt * 4 * sms - qt, M, sms, k) == 2
+    qtiles = -(-1000 // qt)
+    want = -(-4 * sms // qtiles)
+    assert want <= tops.topk_splits(1000, M, sms, k) <= 2 * want
+    for B in (1, 13, 1000, 16384):
+        for m in (1, 127, 1024, 5000, M):
+            s = tops.topk_splits(B, m, sms, k)
+            tiles = -(-m // tops.TOPK_ROWS_PER_TILE)
+            assert 1 <= s <= max(1, tiles // tops.TOPK_MIN_TILES_PER_SPLIT)
+
+
+def test_topk_constants_match_the_kernel_source():
+    """The wrapper's tiling constants are the ones the CUDA source uses."""
+    topk = (Path(tops.build.CSRC) / "score_topk.cu").read_text()
+    matrix = (Path(tops.build.CSRC) / "score_matrix.cu").read_text()
+
+    def const(src, name):
+        return int(re.search(r"constexpr int " + name + r" = (\d+);", src).group(1))
+
+    assert const(topk, "kWideMaxK") == tops.TOPK_WIDE_MAX_K
+    assert const(topk, "RT") == tops.TOPK_ROWS_PER_TILE
+    assert const(topk, "KMAX") == tops.TOPK_MAX_K
+    assert re.search(r"n > " + str(tops.SELF_MAX_N) + r" \|\|", matrix)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("same", True), ("same_2d", True), ("copy", False), ("offset_view", False),
+    ("bf16", False), ("too_many_rows", False), ("d_not_multiple_of_4", False),
+    ("other_shape", False),
+])
+def test_score_matrix_self_path_detection(case, want):
+    """The self path is taken only when q is x: the same storage, offset,
+    shape and strides, fp32, within the kernel's n and d limits."""
+    x = torch.randn(4, 16, 32)
+    if case == "same":
+        a, b = x, x
+    elif case == "same_2d":
+        a = b = x[1]
+    elif case == "copy":
+        a, b = x, x.clone()
+    elif case == "offset_view":
+        flat = torch.randn(2 * 16 * 32 + 32)
+        a = flat[32:].view(2, 16, 32)
+        b = flat[:-32].view(2, 16, 32)
+    elif case == "bf16":
+        a = b = x.to(torch.bfloat16)
+    elif case == "too_many_rows":
+        a = b = torch.randn(2, tops.SELF_MAX_N + 1, 32)
+    elif case == "d_not_multiple_of_4":
+        a = b = torch.randn(2, 16, 30)
+    else:
+        a, b = x, x[:, :8]
+    assert tops.is_self_pair(a, b) is want
+
+
+@pytest.mark.parametrize("n", [1, 8, 31, 33, 96])
+def test_score_matrix_self_call_equals_a_copy_and_pallas(n):
+    """On the CPU both routes give the plain version: a self call (q is x)
+    equals the call with a copy of x and, on integer data, each row's
+    Pallas matrix."""
+    rng = np.random.default_rng(n)
+    R, d = 3, 16
+    x = int_vectors(rng, R * n, d).reshape(R, n, d)
+    xsq = (x * x).sum(-1)
+    tx = _t(x)
+    got = tops.score_matrix(tx, _t(xsq), tx)
+    assert torch.equal(got, tops.score_matrix(tx, _t(xsq), tx.clone()))
+    for r in range(R):
+        want = jops.score_matrix(jnp.asarray(x[r]), jnp.asarray(xsq[r]),
+                                 jnp.asarray(x[r]))
+        assert (got[r].numpy() == np.asarray(want)).all()

@@ -14,10 +14,10 @@ import torch
 from repro.core import IndexParams, SearchParams
 from repro.core import distances as jdist
 from repro.core import rebuild as jrebuild
-from repro.core.quantize import quantize_rows as jquantize
 from repro.core import search as jsearch
 from repro_torch.core import distances as tdist
 from repro_torch.core import prng
+from repro_torch.core.quantize import quantize_rows as tquantize
 from repro_torch.core import rebuild as trebuild
 from repro_torch.core import search as tsearch
 from torch_parity import int_vectors, state_diff, torch_params, torch_state
@@ -155,8 +155,12 @@ def test_bulk_knn_build_in_degree_pressure(monkeypatch):
 
 def test_bulk_knn_build_cos_keeps_code_invariant():
     """cos normalises the rows, so the data stop being integer-valued and
-    norms and neighbour order may round differently; vectors and scales
-    still match exactly. The port's codes equal ``quantize_rows(vectors)``
+    norms and neighbour order may round differently. The integer state
+    matches exactly. ``vectors`` and ``scales`` are held within 4 ulp, not
+    bit for bit: XLA's CPU code for ``x / sqrt(sum x^2)`` depends on the
+    host CPU, and JAX's eager ``normalize`` and its jitted build already
+    differ from each other in the last bits (2 ulp measured between the
+    packages). The port's codes equal ``quantize_rows(vectors)`` exactly
     (invariant I5). The JAX build's do not always: inside its jitted
     program XLA fuses the normalisation with the quantizer's division and
     rounds some ``x / scale`` near .5 the other way."""
@@ -167,10 +171,15 @@ def test_bulk_knn_build_cos_keeps_code_invariant():
                    k_nn=10)
     ts = trebuild.bulk_knn_build(X, valid, torch_params(p), k_nn=10,
                                  device="cpu")
-    assert state_diff(js, ts, ("vectors", "scales", "alive", "present",
-                               "stamps", "touch", "size", "clock")) == []
-    eager, _ = jquantize(js.vectors)
-    assert (ts.codes.numpy() == np.asarray(eager)).all()
+    assert state_diff(js, ts, ("alive", "present", "stamps", "touch", "size",
+                               "clock")) == []
+    for f in ("vectors", "scales"):
+        np.testing.assert_array_max_ulp(getattr(ts, f).numpy(),
+                                        np.asarray(getattr(js, f)), maxulp=4)
+    codes, scales = tquantize(ts.vectors)
+    present = ts.present
+    assert torch.equal(ts.codes, codes)
+    assert torch.equal(ts.scales[present], scales[present])  # free: scrubbed 0
     same_rows = (ts.adj.numpy() == np.asarray(js.adj)).all(1)[:150][valid]
     assert same_rows.mean() > 0.9
 
@@ -182,8 +191,11 @@ def test_distances_match():
     xsq = (x * x).sum(1)
     tx, tq, tsq = torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(xsq)
     assert (tdist.sqnorm(tx).numpy() == np.asarray(jdist.sqnorm(jnp.asarray(x)))).all()
-    assert (tdist.normalize(tx).numpy()
-            == np.asarray(jdist.normalize(jnp.asarray(x)))).all()
+    # XLA's CPU division by the root depends on the host: 4 ulp, as in the
+    # cos bulk build above
+    np.testing.assert_array_max_ulp(tdist.normalize(tx).numpy(),
+                                    np.asarray(jdist.normalize(jnp.asarray(x))),
+                                    maxulp=4)
     for metric in ("l2", "ip", "cos"):
         want = jdist.score_matrix(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(q),
                                   metric)
