@@ -15,9 +15,15 @@ Phases, each printing one JSON line:
            128, B no multiple of its query tile, n_valid inside a row tile,
            in its single- and multi-split forms; score_matrix's self path
            (q is x) against its general path and the plain version at
-           n = 1..128; median times of kernel, plain version and one
-           library call (per select shape for score_matrix, and at the bulk
-           build's 16,384-query block for score_topk, with its bound);
+           n = 1..128; the gathers at d = 8, 32, 100, 128, 130 and on
+           offset table views, at B 64 and 4,096 × C 32, and one
+           gather_scores launch captured in a CUDA graph and replayed on
+           new ids; median times of kernel, plain version and one
+           library call (per select shape for score_matrix, at the bulk
+           build's 16,384-query block for score_topk, at B = 64 for the
+           gathers, whose calls each take the next id set of a rotation
+           that keeps their rows cold, also as device time per launch
+           replayed from a CUDA graph), with the bounds;
   parity   small sessions (GLOBAL, LOCAL, RWALK, MASK with consolidation
            and a refine pass, an armed session that grows) and a bulk build
            run on the card and on the CPU must leave byte-equal state and
@@ -26,12 +32,14 @@ Phases, each printing one JSON line:
            2^20 slots, stream rounds (2 of the cell's 4 by default, printed
            as ``reduced``) of queries, inserts and GLOBAL deletes
            through ``Session``, recall@10 before and after (fp32 and
-           quantized with rerank), with the launch counts of every kernel;
+           quantized with rerank), with the launch counts of every kernel
+           and the gathers' split by (B, C);
   maint    the paper's §6 protocol on the clustered update pattern at the
            same scale: PURE, MASK, LOCAL, GLOBAL and RWALK each on a copy of
            one bulk-built state, ReBuild (PURE + bulk rebuild each step),
            then MASK's consolidation and a capacity grow, and a refine pass
-           on LOCAL; per-strategy rates and recall@10 after every step.
+           on LOCAL; per-strategy rates and recall@10 after every step, and
+           the launch counts as in sift1m.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -41,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -165,6 +174,145 @@ def _topk_ids_ok(gs, gi, ws, wi):
     return int(diff.sum())
 
 
+# widths the gathers are held at: fp32 rows take float4 pieces at 8, 32, 100
+# and 128 and single floats at 130; codes take 16-byte pieces at 32 and 128
+# and single bytes at 8, 100 and 130
+GATHER_WIDTHS = (8, 32, 100, 128, 130)
+ROTATION_BYTES = 128 << 20      # rows one rotation of id sets reads: > 2 × the 50 MB L2
+
+
+def id_rotation(g, N: int, B: int, C: int, row_bytes: int, dev):
+    """[n, B, C] pre-drawn id sets whose rows together exceed twice the L2,
+    so a call that takes the next set finds its rows cold, as a beam trip
+    that expands new rows does."""
+    import torch
+    n = max(3, -(-ROTATION_BYTES // (B * C * row_bytes)))
+    return torch.randint(0, N, (n, B, C), generator=g, device=dev, dtype=torch.int32)
+
+
+def median_ms_rotating(fn, n_sets: int, runs: int = 20, warmup: int = 3,
+                       calls: int = 1) -> float:
+    """Median time per call of ``fn(i)``, each call on the next set i of a
+    rotation of ``n_sets``; ``calls`` back-to-back calls a timed run."""
+    turn = itertools.count()
+
+    def batch():
+        for _ in range(calls):
+            fn(next(turn) % n_sets)
+    return median_ms(batch, runs=runs, warmup=warmup) / calls
+
+
+GRAPH_LAUNCHES = 32
+
+
+def graph_ms_rotating(fn, n_sets: int) -> float:
+    """Device time per launch: ``GRAPH_LAUNCHES`` calls of ``fn(i)``, each on
+    the next set of a rotation, captured in one CUDA graph and replayed, so
+    the host's cost of a launch is left out."""
+    import torch
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(GRAPH_LAUNCHES):
+            fn(k % n_sets)
+    ms = median_ms(graph.replay, runs=10, warmup=2) / GRAPH_LAUNCHES
+    del graph
+    return ms
+
+
+def gather_byte_bound_ms(B: int, C: int, d: int, q8: bool) -> float:
+    """Each row, id, norm or scale and score once, and q once, over 3.35 TB/s."""
+    row = d if q8 else 4 * d
+    return (B * C * (row + 12) + B * d * 4) / PEAK_BYTES_PER_S * 1e3
+
+
+def gather_tables(torch, make, full, dev, n_small: int = 1 << 16):
+    """(label, rows, (codes, scales)) at every width of ``GATHER_WIDTHS``
+    (``full`` at 128), on a view offset by one row of an odd width (129) and
+    on one offset by one element (d 128): both views take the narrow paths.
+    An offset view's codes keep its offset."""
+    from repro_torch.core.quantize import quantize_rows
+    for d in GATHER_WIDTHS:
+        t = full if d == 128 else make((n_small, d))
+        yield f"d{d}", t, quantize_rows(t)
+    base = make((n_small + 1, 129))
+    c, s = quantize_rows(base)
+    yield "d129_row_offset", base[1:], (c[1:], s[1:])
+    t = make((n_small * 128 + 1,))[1:].view(n_small, 128)
+    c, s = quantize_rows(t)
+    c_off = torch.empty(c.numel() + 1, dtype=torch.int8, device=dev)[1:].view(c.shape)
+    c_off.copy_(c)
+    yield "d128_elem_offset", t, (c_off, s)
+
+
+def edge_ids(torch, g, N: int, B: int, C: int, dev):
+    """[B, C] random ids with -1, N-1, N in the first row and two more
+    invalid ids inside warp tiles."""
+    ids = torch.randint(0, N, (B, C), generator=g, device=dev, dtype=torch.int32)
+    ids[0, :3] = torch.tensor([-1, N - 1, N], dtype=torch.int32)
+    ids[1, 5], ids[B - 1, C - 1] = -7, N + 5
+    return ids
+
+
+def gather_exactness(torch, kops, kref, dev, g, xi, xg) -> dict:
+    """Both gathers against their plain versions on ``gather_tables``, at
+    B 64 × C 32 and B 4,096 × C 32 with ``edge_ids``: byte-equal on integer
+    data, within rtol 1e-4 / atol 1e-3 on Gaussian data. Returns the
+    largest Gaussian errors [fp32, q8] per case."""
+    report = {}
+    for kind in ("int", "gauss"):
+        make = ((lambda shape: _int_data(g, shape, dev)) if kind == "int"
+                else (lambda shape: torch.randn(shape, generator=g, device=dev)))
+        full = xi if kind == "int" else xg
+        for label, t, (codes, scales) in gather_tables(torch, make, full, dev):
+            N, d = t.shape
+            tsq = (t * t).sum(1)
+            for B in (64, 4096):
+                C = 32
+                ids = edge_ids(torch, g, N, B, C, dev)
+                q = make((B, d))
+                for metric in ("l2", "ip"):
+                    for name, tab, aux in (("gather_scores", t, tsq),
+                                           ("gather_scores_q8", codes, scales)):
+                        fn = getattr(kops, name)
+                        pf = getattr(kref, name)
+                        got, want = fn(tab, aux, ids, q, metric=metric), pf(tab, aux, ids, q, metric)
+                        what = f"{name} {kind} {label} B={B} {metric}"
+                        check(got.shape == (B, C), f"{what}: output shape")
+                        if kind == "int":
+                            check(torch.equal(got, want), f"{what}: integer data not exact")
+                        else:
+                            key = f"{label}_B{B}_{metric}"
+                            report.setdefault(key, []).append(_close(got, want))
+    return report
+
+
+def gather_graph_replay(torch, kops, dev, g, table, tsq) -> bool:
+    """One gather_scores launch at B = 64, C = 32 captured in a CUDA graph,
+    new ids and queries copied into its static inputs, replayed: the same
+    bits as an eager call (the wrapper has no host sync or allocation that
+    a captured beam trip could not hold)."""
+    N, d = table.shape
+    B, C = 64, 32
+
+    def draw():
+        return edge_ids(torch, g, N, B, C, dev), torch.randn((B, d), generator=g, device=dev)
+
+    ids, q = draw()
+    kops.gather_scores(table, tsq, ids, q)          # binds the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kops.gather_scores(table, tsq, ids, q)
+    new_ids, new_q = draw()
+    ids.copy_(new_ids)
+    q.copy_(new_q)
+    graph.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(out, kops.gather_scores(table, tsq, new_ids, new_q)))
+
+
 def phase_kernels(torch, kops, kref, dev) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -180,25 +328,7 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     from repro_torch.core.quantize import quantize_rows
     xi = _int_data(g, (N, d), dev)
     xg = torch.randn((N, d), generator=g, device=dev)
-    report = {}
-    for B in (64, 4096):
-        C = 32
-        ids = torch.randint(0, N, (B, C), generator=g, device=dev, dtype=torch.int32)
-        ids[0, :3] = torch.tensor([-1, N - 1, N], dtype=torch.int32)
-        qi = _int_data(g, (B, d), dev)
-        qg = torch.randn((B, d), generator=g, device=dev)
-        for metric in ("l2", "ip"):
-            got, want = gather_case(xi, (xi * xi).sum(1), ids, qi, "gather_scores", metric)
-            check(torch.equal(got, want), f"gather_scores {metric} B={B}: integer data not exact")
-            ci, si = quantize_rows(xi)
-            got, want = gather_case(ci, si, ids, qi, "gather_scores_q8", metric)
-            check(torch.equal(got, want), f"gather_scores_q8 {metric} B={B}: integer data not exact")
-            got, want = gather_case(xg, (xg * xg).sum(1), ids, qg, "gather_scores", metric)
-            e1 = _close(got, want)
-            cg, sg = quantize_rows(xg)
-            got, want = gather_case(cg, sg, ids, qg, "gather_scores_q8", metric)
-            e2 = _close(got, want)
-            report[f"B{B}_{metric}"] = [e1, e2]
+    report = gather_exactness(torch, kops, kref, dev, g, xi, xg)
     # grown-tier table sizes and the tier boundary ids
     for M in (1 << 10, (1 << 10) + 1, 3 << 10, 1 << 17, (1 << 17) + 1, 3 << 17):
         t = xg[:M].contiguous()
@@ -208,45 +338,58 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
         _close(*gather_case(t, (t * t).sum(1), ids, q, "gather_scores", "l2"))
         c, s = quantize_rows(t)
         _close(*gather_case(c, s, ids, q, "gather_scores_q8", "l2"))
-
-    # timings at the GLOBAL-repair shape (B = 64·d_in = 4096, C = 32)
-    B, C = 4096, 32
-    ids = torch.randint(0, N, (B, C), generator=g, device=dev, dtype=torch.int32)
-    q = torch.randn((B, d), generator=g, device=dev)
     tsq = (xg * xg).sum(1)
+    check(gather_graph_replay(torch, kops, dev, g, xg, tsq),
+          "gather_scores: a captured launch replayed to other bits than an eager call")
+
+    # timings at the GLOBAL-repair shape (B = 64·d_in = 4096, C = 32) and the
+    # beam trip's B = 64, each call on the next id set of a rotation whose
+    # rows exceed twice the L2 (cold rows): single calls through the wrapper
+    # (``ms``, what an eager caller pays) and device time per launch
+    # (``device_ms``, replayed from a CUDA graph)
+    B, C = 4096, 32
+    q = torch.randn((B, d), generator=g, device=dev)
     cg, sg = quantize_rows(xg)
-    safe = ids.long().flatten()
 
-    def lib_gather():
-        rows = xg.index_select(0, safe).view(B, C, d)
-        return 2.0 * torch.einsum("bcd,bd->bc", rows, q) - tsq.index_select(0, safe).view(B, C)
+    def lib_gather(ids, q):
+        safe = ids.long().flatten()
+        rows = xg.index_select(0, safe).view(*ids.shape, d)
+        return (2.0 * torch.einsum("bcd,bd->bc", rows, q)
+                - tsq.index_select(0, safe).view(ids.shape))
 
-    def lib_gather_q8():
-        rows = cg.index_select(0, safe).view(B, C, d).float()
-        s = sg.index_select(0, safe).view(B, C)
+    def lib_gather_q8(ids, q):
+        safe = ids.long().flatten()
+        rows = cg.index_select(0, safe).view(*ids.shape, d).float()
+        s = sg.index_select(0, safe).view(ids.shape)
         return s * (2.0 * torch.einsum("bcd,bd->bc", rows, q)
                     - s * torch.einsum("bcd,bcd->bc", rows, rows))
 
-    gbytes = B * C * (4 * d + 12) + B * d * 4
-    qbytes = B * C * (d + 12) + B * d * 4
-    for name, table, aux, lib, nbytes in (
-            ("gather_scores", xg, tsq, lib_gather, gbytes),
-            ("gather_scores_q8", cg, sg, lib_gather_q8, qbytes)):
-        kfn = kops.gather_scores if name == "gather_scores" else kops.gather_scores_q8
-        pfn = kref.gather_scores if name == "gather_scores" else kref.gather_scores_q8
+    for name, table, aux, lib, row_bytes in (
+            ("gather_scores", xg, tsq, lib_gather, 4 * d),
+            ("gather_scores_q8", cg, sg, lib_gather_q8, d)):
+        kfn, pfn = getattr(kops, name), getattr(kref, name)
+        rot = id_rotation(g, N, B, C, row_bytes, dev)
+        n = rot.shape[0]
+        rot64 = id_rotation(g, N, 64, C, row_bytes, dev)
+        n64 = rot64.shape[0]
+        q64 = q[:64].contiguous()
         results[name] = dict(
-            ms=median_ms(lambda: kfn(table, aux, ids, q, metric="l2")),
-            plain_ms=median_ms(lambda: pfn(table, aux, ids, q, "l2")),
-            library_ms=median_ms(lib),
-            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+            ms=median_ms_rotating(lambda i: kfn(table, aux, rot[i], q, metric="l2"), n),
+            plain_ms=median_ms_rotating(lambda i: pfn(table, aux, rot[i], q, "l2"), n),
+            library_ms=median_ms_rotating(lambda i: lib(rot[i], q), n),
+            bound_ms=gather_byte_bound_ms(B, C, d, name == "gather_scores_q8"),
+            bound_by="bytes",
             max_abs_err=max(v[0 if name == "gather_scores" else 1]
                             for v in report.values()),
-            shape=dict(B=B, C=C, N=N, d=d))
-    results["gather_scores"]["ms_B64"] = median_ms(
-        lambda: kops.gather_scores(xg, tsq, ids[:64].contiguous(), q[:64].contiguous()))
-    results["gather_scores_q8"]["ms_B64"] = median_ms(
-        lambda: kops.gather_scores_q8(cg, sg, ids[:64].contiguous(), q[:64].contiguous()))
-    del cg, sg, ci, si
+            device_ms=graph_ms_rotating(lambda i: kfn(table, aux, rot[i], q, metric="l2"), n),
+            ms_B64=median_ms_rotating(lambda i: kfn(table, aux, rot64[i], q64), n64),
+            device_ms_B64=graph_ms_rotating(lambda i: kfn(table, aux, rot64[i], q64), n64),
+            plain_ms_B64=median_ms_rotating(lambda i: pfn(table, aux, rot64[i], q64, "l2"), n64),
+            library_ms_B64=median_ms_rotating(lambda i: lib(rot64[i], q64), n64),
+            bound_ms_B64=gather_byte_bound_ms(64, C, d, name == "gather_scores_q8"),
+            rotation_sets=n, shape=dict(B=B, C=C, N=N, d=d))
+        del rot, rot64
+    del cg, sg
 
     # ---- score_topk: ids identical on integer data ----
     # B = 1,000 is no multiple of the query tile (128, or 64 at k > 70) and
@@ -566,6 +709,13 @@ def phase_parity() -> dict:
     return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1)
 
 
+def gather_shape_split(kops) -> dict:
+    """The gathers' launches by (B, C), most launched first."""
+    return {name: {f"B{b}xC{c}": n for (b, c), n in sorted(
+        by_shape.items(), key=lambda kv: -kv[1])}
+        for name, by_shape in kops.launches_by_shape.items()}
+
+
 # ---------------------------------------------------------------------------
 # the main path at SIFT1M scale
 # ---------------------------------------------------------------------------
@@ -654,6 +804,7 @@ def phase_sift1m(torch, n_base: int, rounds: int, per_round: int) -> dict:
         check(gap <= 0.02, f"quantized+rerank recall trails fp32 by {gap} ({tag})")
     torch.cuda.synchronize()
     out["launches"] = dict(kops.launches)    # the main path ends here
+    out["gather_launches_by_shape"] = gather_shape_split(kops)
     out["items_per_s"] = {k: rounds * per_round / v for k, v in op_s.items() if v > 0}
     out["timers"] = sess.timers.to_dict()
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -828,6 +979,7 @@ def phase_maint(torch, n_base: int, per_step: int, steps: int,
         torch.cuda.empty_cache()
     sync()
     out["launches"] = dict(kops.launches)      # the maint path ends here
+    out["gather_launches_by_shape"] = gather_shape_split(kops)
     out["strategies"] = per_strategy
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     for kname in ("gather_scores", "score_topk", "score_matrix"):

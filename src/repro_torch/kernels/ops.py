@@ -6,12 +6,14 @@ and routes by device alone: a CPU tensor goes through the plain version in
 ``kernels/ref.py``; a CUDA tensor launches the kernel or raises. There is
 no fallback from the card to the plain version.
 
-``launches`` counts, per kernel, the wrapper calls that launched it; the
-CPU path never counts.
+``launches`` counts, per kernel, the wrapper calls that launched it, and
+``launches_by_shape`` splits the two gathers' count by ``(B, C)``; the CPU
+path never counts.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,17 +26,23 @@ TOPK_ROWS_PER_TILE = 128        # csrc/score_topk.cu RT
 TOPK_BLOCKS_PER_SM = 2          # resident blocks (launch bounds, shared memory)
 TOPK_MIN_TILES_PER_SPLIT = 8
 SELF_MAX_N = 64                 # csrc/score_matrix.cu self path
+GATHER_WARPS = 2                # csrc/gather_scores.cu kWarps (a block)
+GATHER_MIN_BLOCKS_PER_SM = 8    # csrc/gather_scores.cu kMinBlocksPerSM
+GATHER_ROWS_PER_WARP = (1, 2, 4, 8)         # fp32, up to kMaxRowsPerWarp
+GATHER_Q8_LANES_PER_ROW = 8                 # csrc/gather_scores.cu kQ8LanesPerRow
+GATHER_Q8_ROWS_PER_WARP = (4, 8, 16, 32)    # 4 lane groups × 1..kQ8MaxRowsPerGroup
 
 launches = {"gather_scores": 0, "gather_scores_q8": 0, "score_topk": 0,
             "score_matrix": 0}
+launches_by_shape: dict = {"gather_scores": {}, "gather_scores_q8": {}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     ("gather_scores", "gather_scores_f32"): [_P, _P, _P, _P, _P, _I, _I, _I,
-                                             _I, _I, _P],
+                                             _I, _I, _I, _P],
     ("gather_scores", "gather_scores_q8"): [_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _I, _I, _P],
+                                            _I, _I, _I, _P],
     ("score_topk", "score_topk_f32"): [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _P],
     ("score_matrix", "score_matrix_f32"): [_P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -50,6 +58,8 @@ _SCORE_MATRIX_FN = {torch.float32: "score_matrix_f32",
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for by_shape in launches_by_shape.values():
+        by_shape.clear()
 
 
 _bound: dict = {}
@@ -95,6 +105,46 @@ def _gather_args(table, aux, ids, q, table_dtype, name):
             ids.to(torch.int32).contiguous(), q.float().contiguous())
 
 
+def gather_blocks(rows: int, rows_per_warp: int) -> int:
+    """Blocks of ``GATHER_WARPS`` warps that cover ``rows`` (b, c) pairs."""
+    return -(-rows // (rows_per_warp * GATHER_WARPS))
+
+
+def gather_rows_per_warp(rows: int, sms: int, q8: bool = False) -> int:
+    """The gather kernels' tile: the most rows a warp that still gives every
+    SM a block (all rows then go out in one wave at the beam trip's B = 64,
+    C = 32), the fewest where even that does not."""
+    options = GATHER_Q8_ROWS_PER_WARP if q8 else GATHER_ROWS_PER_WARP
+    for r in reversed(options):
+        if gather_blocks(rows, r) >= sms:
+            return r
+    return options[0]
+
+
+@functools.lru_cache(maxsize=None)
+def gather_plan(rows: int, q8: bool, device_index: int) -> int:
+    """``gather_rows_per_warp`` on a card, remembered: the beam loop
+    launches a handful of shapes tens of thousands of times."""
+    return gather_rows_per_warp(rows, _sm_count(device_index), q8=q8)
+
+
+def _gather(name, fn_name, table, aux, ids, q, metric):
+    B, C = ids.shape
+    out = torch.empty((B, C), dtype=torch.float32, device=table.device)
+    if B * C == 0:
+        return out
+    rpw = gather_plan(B * C, name == "gather_scores_q8", table.device.index)
+    rc = _fn("gather_scores", fn_name)(
+        table.data_ptr(), aux.data_ptr(), ids.data_ptr(), q.data_ptr(),
+        out.data_ptr(), table.shape[0], table.shape[1], B, C,
+        METRIC_CODE[metric], rpw, _stream())
+    _check(rc, name)
+    launches[name] += 1
+    by_shape = launches_by_shape[name]
+    by_shape[(B, C)] = by_shape.get((B, C), 0) + 1
+    return out
+
+
 def gather_scores(table, tsq, ids, q, *, metric: str = "l2") -> torch.Tensor:
     """[B, C] fused gather + score of each query against its own candidate
     rows (replaces ``repro.kernels.gather_distance.gather_scores_pallas``)."""
@@ -102,17 +152,8 @@ def gather_scores(table, tsq, ids, q, *, metric: str = "l2") -> torch.Tensor:
                                       "gather_scores")
     if table.device.type == "cpu":
         return ref.gather_scores(table, tsq, ids, q, metric)
-    B, C = ids.shape
-    out = torch.empty((B, C), dtype=torch.float32, device=table.device)
-    if B * C == 0:
-        return out
-    rc = _fn("gather_scores", "gather_scores_f32")(
-        table.data_ptr(), tsq.data_ptr(), ids.data_ptr(), q.data_ptr(),
-        out.data_ptr(), table.shape[0], table.shape[1], B, C,
-        METRIC_CODE[metric], _stream())
-    _check(rc, "gather_scores")
-    launches["gather_scores"] += 1
-    return out
+    return _gather("gather_scores", "gather_scores_f32", table, tsq, ids, q,
+                   metric)
 
 
 def gather_scores_q8(codes, scales, ids, q, *, metric: str = "l2"
@@ -123,21 +164,18 @@ def gather_scores_q8(codes, scales, ids, q, *, metric: str = "l2"
                                          "gather_scores_q8")
     if codes.device.type == "cpu":
         return ref.gather_scores_q8(codes, scales, ids, q, metric)
-    B, C = ids.shape
-    out = torch.empty((B, C), dtype=torch.float32, device=codes.device)
-    if B * C == 0:
-        return out
-    rc = _fn("gather_scores", "gather_scores_q8")(
-        codes.data_ptr(), scales.data_ptr(), ids.data_ptr(), q.data_ptr(),
-        out.data_ptr(), codes.shape[0], codes.shape[1], B, C,
-        METRIC_CODE[metric], _stream())
-    _check(rc, "gather_scores_q8")
-    launches["gather_scores_q8"] += 1
-    return out
+    return _gather("gather_scores_q8", "gather_scores_q8", codes, scales, ids,
+                   q, metric)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def num_sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    dev = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def topk_query_tile(k: int) -> int:

@@ -258,6 +258,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert set(tops.launches) == {"gather_scores", "gather_scores_q8",
                                   "score_topk", "score_matrix"}
     assert all(v == 0 for v in tops.launches.values())
+    assert set(tops.launches_by_shape) == {"gather_scores", "gather_scores_q8"}
+    assert not any(tops.launches_by_shape.values())
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
@@ -359,3 +361,113 @@ def test_score_matrix_self_call_equals_a_copy_and_pallas(n):
         want = jops.score_matrix(jnp.asarray(x[r]), jnp.asarray(xsq[r]),
                                  jnp.asarray(x[r]))
         assert (got[r].numpy() == np.asarray(want)).all()
+
+
+# ---- the gathers' launch planner (csrc/gather_scores.cu) ----
+
+GATHER_PLAN_SHAPES = [(64, 32), (4096, 32), (1000, 64), (1000, 32), (64, 2),
+                      (13, 17), (1, 1)]
+
+
+def _gather_tiles(B, C, sms, q8):
+    """(rows each lane group reads, rows the writing lanes store), as the
+    kernels map blocks, warps and lanes onto the flat [B*C] range."""
+    total = B * C
+    rpw = tops.gather_rows_per_warp(total, sms, q8=q8)
+    groups = 32 // tops.GATHER_Q8_LANES_PER_ROW if q8 else 1
+    per_group = rpw // groups
+    read, written = [], []
+    for blk in range(tops.gather_blocks(total, rpw)):
+        for w in range(tops.GATHER_WARPS):
+            r0 = (blk * tops.GATHER_WARPS + w) * rpw
+            for g in range(groups):
+                read += [r for r in range(r0 + g * per_group, r0 + (g + 1) * per_group)
+                         if r < total]
+            written += [r0 + lane for lane in range(32) if lane < rpw and r0 + lane < total]
+    return rpw, read, written
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("B,C", GATHER_PLAN_SHAPES)
+def test_gather_plan_covers_every_pair_once(B, C, q8):
+    """Every (b, c) is read by exactly one lane group and stored by exactly
+    one lane; the tile is one of the kernel's instantiations."""
+    rpw, read, written = _gather_tiles(B, C, 132, q8)
+    assert rpw in (tops.GATHER_Q8_ROWS_PER_WARP if q8 else tops.GATHER_ROWS_PER_WARP)
+    assert sorted(read) == list(range(B * C))
+    assert sorted(written) == list(range(B * C))
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+def test_gather_plan_fills_the_card(q8):
+    """At the beam trip's B = 64, C = 32 every one of 132 SMs gets a block
+    and all blocks are resident at once (one wave); at B = 4,096 the
+    resident warps keep >= 40 KB of rows in flight per SM."""
+    sms = 132
+    rpw = tops.gather_rows_per_warp(64 * 32, sms, q8=q8)
+    blocks = tops.gather_blocks(64 * 32, rpw)
+    assert sms <= blocks <= sms * tops.GATHER_MIN_BLOCKS_PER_SM
+    rpw = tops.gather_rows_per_warp(4096 * 32, sms, q8=q8)
+    assert rpw == max(tops.GATHER_Q8_ROWS_PER_WARP if q8 else tops.GATHER_ROWS_PER_WARP)
+    warps_per_sm = tops.GATHER_MIN_BLOCKS_PER_SM * tops.GATHER_WARPS
+    row_bytes = 128 if q8 else 4 * 128
+    assert warps_per_sm * rpw * row_bytes >= 40 << 10
+
+
+def test_gather_constants_match_the_kernel_source():
+    """The planner's constants are the ones the CUDA source uses, and each
+    tile the planner can pick has a case in the source's dispatch."""
+    src = (Path(tops.build.CSRC) / "gather_scores.cu").read_text()
+
+    def const(name):
+        return int(re.search(r"constexpr int " + name + r" = (\d+);", src).group(1))
+
+    lanes = const("kQ8LanesPerRow")
+    assert const("kWarps") == tops.GATHER_WARPS
+    assert const("kMinBlocksPerSM") == tops.GATHER_MIN_BLOCKS_PER_SM
+    assert lanes == tops.GATHER_Q8_LANES_PER_ROW
+    assert max(tops.GATHER_ROWS_PER_WARP) == const("kMaxRowsPerWarp")
+    assert max(tops.GATHER_Q8_ROWS_PER_WARP) == (32 // lanes) * const("kQ8MaxRowsPerGroup")
+    for r in tops.GATHER_ROWS_PER_WARP[:-1]:
+        assert re.search(rf"case {r}: gather_f32_kernel<VEC, {r}>", src)
+    for r in tops.GATHER_Q8_ROWS_PER_WARP[:-1]:
+        rg = r // (32 // lanes)
+        assert re.search(rf"case {rg}: gather_q8_kernel<VEC, {rg}>", src)
+
+
+@pytest.mark.parametrize("entry", sorted(tops._SIGNATURES), ids=lambda e: e[1])
+def test_cuda_entry_point_argument_types(entry):
+    """Each ctypes argument type matches its C parameter: a pointer for a
+    pointer (and the stream), a 32-bit int for an int."""
+    lib, fn = entry
+    src = (Path(tops.build.CSRC) / f"{lib}.cu").read_text()
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src).group(1).split(",")
+    kinds = [tops._P if "*" in p else tops._I for p in params]
+    assert all("*" in p or re.fullmatch(r"\s*int \w+\s*", p) for p in params), params
+    assert kinds == tops._SIGNATURES[entry]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [128, 8])
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+def test_gathers_match_pallas_at_the_beam_trip(q8, d, metric):
+    """The beam trip's shape (B 64, C 32) at d = 128 and at d = 8: the plain
+    versions against the Pallas kernels, with edge ids."""
+    M, B, C = 1500, 64, 32
+    rng = np.random.default_rng(d + 7 * q8)
+    x = rng.normal(size=(M, d)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    ids = _edge_ids(rng, M, B, C)
+    ids[1, 5], ids[B - 1, C - 1] = -7, M + 5
+    if q8:
+        codes, scales = jquantize(jnp.asarray(x))
+        want = jops.gather_scores_q8(codes, scales, jnp.asarray(ids), jnp.asarray(q),
+                                     metric=metric)
+        got = tops.gather_scores_q8(_t(codes), _t(scales), _t(ids), _t(q), metric=metric)
+    else:
+        xsq = (x * x).sum(1)
+        want = jops.gather_scores(jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(ids),
+                                  jnp.asarray(q), metric=metric)
+        got = tops.gather_scores(_t(x), _t(xsq), _t(ids), _t(q), metric=metric)
+    assert got.shape == (B, C)
+    _assert_scores(got, want)

@@ -16,8 +16,8 @@ ipgm_ann d = 128 settings, capacity 2^20), then prints one JSON line each:
                  ``score_matrix`` kernel's share of select is reported
                  beside them (it is inside select, not added to the sum);
   profile        a torch.profiler trace of the same ops: device time by
-                 kernel name, launches, and the device's busy share of the
-                 wall time.
+                 kernel name, launches, the device's busy share of the wall
+                 time, and the two gather kernels' device time and launches.
 
 The card's name and power limit come first. Needs one CUDA device; imports
 nothing of JAX.
@@ -49,6 +49,7 @@ from repro_torch.data.synthetic import make_dataset  # noqa: E402
 
 
 NESTED = "score_matrix_in_select"   # timed inside "select", not summed
+GATHER_KERNELS = ("gather_f32_kernel", "gather_q8_kernel")   # csrc/gather_scores.cu
 
 
 def emit(obj) -> None:
@@ -190,6 +191,7 @@ def main() -> int:
         kernels = []
         busy = 0.0
         launches = 0
+        gather_us, gather_n = 0.0, 0
         for ev in prof.key_averages():
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
@@ -198,11 +200,15 @@ def main() -> int:
                 busy += dev_us
                 launches += ev.count
                 kernels.append((dev_us, ev.count, ev.key[:80]))
+                if any(k in ev.key for k in GATHER_KERNELS):
+                    gather_us += dev_us
+                    gather_n += ev.count
         kernels.sort(reverse=True)
         prof_out[name] = {
             "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "busy_share": busy / 1e6 / wall if wall > 0 else None,
             "kernel_launches": launches,
+            "gather_device_ms": gather_us / 1e3, "gather_launches": gather_n,
             "top": [{"kernel": k, "device_ms": us / 1e3, "count": c}
                     for us, c, k in kernels[:8]]}
     emit({"profile": prof_out})
