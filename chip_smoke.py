@@ -39,7 +39,28 @@ Phases, each printing one JSON line:
            one bulk-built state, ReBuild (PURE + bulk rebuild each step),
            then MASK's consolidation and a capacity grow, and a refine pass
            on LOCAL; per-strategy rates and recall@10 after every step, and
-           the launch counts as in sift1m.
+           the launch counts as in sift1m;
+  durable  cell sift1m-durable: a journaled LOCAL session over the bulk-built
+           10^6 index (checkpoints in a fresh directory under build/, its
+           filesystem printed): save(0), 2 rounds of 2,048 queries, inserts
+           and deletes with save(1) between them as the control; the same
+           stream from a copy of step 0, killed by a simulated crash after
+           the journal append of the last round's insert, recovered and
+           finished — every GraphState array torch.equal to the control's,
+           and the counters; then a child process recovers the directory,
+           streams batches with a flush after each and is sent SIGKILL after
+           its second acknowledgement: every acknowledged insert must be alive
+           with its row, no acknowledged delete alive (unless a later batch's
+           insert took its slot), I1–I7 hold; checkpoint bytes, save/restore
+           seconds, journal bytes per round, records replayed and skipped;
+  tiered   cell sift1m-tiered: a TieredSession whose main tier is the
+           bulk-built index (fresh tier 2^17 slots, GLOBAL), 2 rounds of 8 ×
+           (256 inserts with 16 upserts, 256 deletes half on main-resident
+           and half on fresh ids, 256 queries), an auto-merge during the
+           stream and an explicit merge at the end; no query may return a
+           deleted id or a stale score; check_mirrors; recall@10 (fp32 and
+           quantized + rerank 64) before and after; save and recover
+           bit-exact; rates, merge seconds and rows, peak memory.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -720,10 +741,24 @@ def gather_shape_split(kops) -> dict:
 # the main path at SIFT1M scale
 # ---------------------------------------------------------------------------
 
+def sift_params(capacity: int, **maintenance):
+    """The cells' ipgm_ann d = 128 settings (PERF.md §4)."""
+    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams
+    return IndexParams(
+        capacity=capacity, dim=128, d_out=32, d_in=64,
+        search=SearchParams(pool_size=64, max_steps=128, num_starts=2),
+        maintenance=MaintenanceParams(insert_chunk=64, delete_chunk=64,
+                                      **maintenance))
+
+
+def sift_capacity(n_base: int, n_extra: int) -> int:
+    return 1 << max(10, (n_base + n_extra - 1).bit_length())
+
+
 def phase_sift1m(torch, n_base: int, rounds: int, per_round: int) -> dict:
     import numpy as np
 
-    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session
+    from repro_torch.core import Session
     from repro_torch.core.graph import NULL
     from repro_torch.core.health import check_health
     from repro_torch.core.rebuild import bulk_knn_build
@@ -734,14 +769,10 @@ def phase_sift1m(torch, n_base: int, rounds: int, per_round: int) -> dict:
     data = make_dataset("sift", n_base + n_ins + 1000, seed=0)
     base, fresh, held = data[:n_base], data[n_base:n_base + n_ins], data[n_base + n_ins:]
     stream_q = make_dataset("sift", max(n_ins, 1), seed=1)
-    capacity = 1 << max(10, (n_base + n_ins - 1).bit_length())
-    # ipgm_ann's d = 128 settings (src/repro/configs/ipgm_ann.py)
-    sp = SearchParams(pool_size=64, max_steps=128, num_starts=2)
-    params = IndexParams(capacity=capacity, dim=128, d_out=32, d_in=64, search=sp,
-                         maintenance=MaintenanceParams(strategy="global",
-                                                       insert_chunk=64, delete_chunk=64))
+    capacity = sift_capacity(n_base, n_ins)
+    params = sift_params(capacity, strategy="global")
     qparams = dataclasses.replace(params, search=dataclasses.replace(
-        sp, quantized=True, rerank_depth=64))
+        params.search, quantized=True, rerank_depth=64))
     rng = np.random.default_rng(0)
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launches()                       # the main path starts here
@@ -867,7 +898,7 @@ def phase_maint(torch, n_base: int, per_step: int, steps: int,
     next one, 1,000 queries after each step."""
     import numpy as np
 
-    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session
+    from repro_torch.core import Session
     from repro_torch.core.graph import DATA_FIELDS, NULL
     from repro_torch.core.rebuild import bulk_knn_build
     from repro_torch.data.synthetic import make_dataset
@@ -880,11 +911,8 @@ def phase_maint(torch, n_base: int, per_step: int, steps: int,
     extra = make_dataset("sift", per_step, seed=7)    # the step after the grow
     out = {"n_base": n_base, "per_step": per_step, "steps": steps,
            "n_queries": n_queries, "data_s": time.perf_counter() - t}
-    capacity = 1 << max(10, (n_base + steps * per_step - 1).bit_length())
-    base_params = IndexParams(
-        capacity=capacity, dim=128, d_out=32, d_in=64,
-        search=SearchParams(pool_size=64, max_steps=128, num_starts=2),
-        maintenance=MaintenanceParams(insert_chunk=64, delete_chunk=64))
+    capacity = sift_capacity(n_base, steps * per_step)
+    base_params = sift_params(capacity)
     Q = wl.queries
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launches()                       # the maint path starts here
@@ -987,9 +1015,501 @@ def phase_maint(torch, n_base: int, per_step: int, steps: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# durability and the two-tier index at SIFT1M scale
+# ---------------------------------------------------------------------------
+
+CHILD_BATCH = 256          # rows inserted and ids deleted per child batch
+CHILD_MAX_BATCHES = 64     # the parent kills the child long before this
+
+
+def peak_gib(torch) -> float | None:
+    return (torch.cuda.max_memory_allocated() / 2**30
+            if torch.cuda.is_available() else None)
+
+
+def scratch_dir(prefix: str) -> Path:
+    """A fresh directory on the local disk, inside the checkout's build/."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix=prefix, dir=ROOT / "build"))
+
+
+def fs_type(path: Path) -> str:
+    out = subprocess.run(["stat", "-f", "-c", "%T", str(path)],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip() or f"unknown ({out.stderr.strip()})"
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def same_session_state(torch, a, b) -> list[str]:
+    """What differs between two sessions: GraphState arrays (torch.equal on
+    the card), capacity, the op counter and the registry counters."""
+    from repro_torch.core import maint
+    from repro_torch.core.graph import DATA_FIELDS
+    bad = [f for f in DATA_FIELDS
+           if not torch.equal(getattr(a.state, f), getattr(b.state, f))]
+    attrs = ["_op_counter"] + [m.counter_attr for m in maint.SESSION_OPS
+                               if m.counter_attr] + [
+        attr for m in maint.SESSION_OPS for attr, _ in m.state_attrs]
+    bad += [name for name in attrs if getattr(a, name) != getattr(b, name)]
+    if a.state.capacity != b.state.capacity:
+        bad.append("capacity")
+    return bad
+
+
+def child_rows(batch: int):
+    from repro_torch.data.synthetic import make_dataset
+    return make_dataset("sift", CHILD_BATCH, seed=5000 + batch)
+
+
+def durable_child(directory: str, capacity: int, device: str) -> int:
+    """The process the durable phase kills: recover, then stream batches of
+    inserts and deletes with a flush after each, printing what each flush
+    acknowledged. It never deletes an id it inserted itself."""
+    import numpy as np
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import Session
+    sess = Session.recover(directory, sift_params(capacity, strategy="local"),
+                           strategy="local", device=device)
+    print(json.dumps({"recovered": sess.recovery_info}), flush=True)
+    mine: set[int] = set()
+    for b in range(CHILD_MAX_BATCHES):
+        ins = sess.insert(child_rows(b)).result()
+        mine |= set(ins.tolist())
+        alive = np.flatnonzero(sess.state.alive.cpu().numpy())
+        pool = np.setdiff1d(alive, np.fromiter(mine, np.int64, len(mine)))
+        dels = np.random.default_rng(6000 + b).choice(
+            pool, CHILD_BATCH, replace=False).astype(np.int32)
+        sess.delete(dels)
+        sess.flush()
+        print(json.dumps({"ack": b, "inserted": ins.tolist(),
+                          "deleted": dels.tolist()}), flush=True)
+    return 0
+
+
+def kill_child_after(proc, n_acks: int, timeout_s: float) -> list[dict]:
+    """Read the child's acknowledgements; SIGKILL it after the n-th."""
+    import queue
+    import signal
+    import threading
+
+    lines: queue.Queue = queue.Queue()
+
+    def read():
+        for ln in proc.stdout:
+            lines.put(ln)
+        lines.put(None)                     # the child closed its stdout
+
+    threading.Thread(target=read, daemon=True).start()
+    acks, deadline = [], time.monotonic() + timeout_s
+    try:
+        while len(acks) < n_acks:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise SmokeFailure(f"durable: child acknowledged {len(acks)} batches "
+                                   f"in {timeout_s} s")
+            if line is None:
+                raise SmokeFailure(f"durable: the child exited after {len(acks)} "
+                                   f"acknowledgements (exit code {proc.wait(60)})")
+            msg = json.loads(line)
+            if "ack" in msg:
+                acks.append(msg)
+        check(proc.poll() is None, "durable: the child exited before the kill")
+        proc.send_signal(signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+    check(proc.returncode == -signal.SIGKILL,
+          f"durable: child ended with {proc.returncode}, not SIGKILL")
+    return acks
+
+
+def phase_durable(torch, n_base: int, per_round: int, rounds: int = 2,
+                  device: str = "cuda") -> dict:
+    """Cell sift1m-durable: a journaled LOCAL session at 10^6 vectors; a
+    control stream, the same stream crashed after a journal append and
+    recovered (bit-exact against the control), then a child process killed
+    with SIGKILL mid-stream and recovered from disk."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import Session
+    from repro_torch.core.health import check_health
+    from repro_torch.core.rebuild import bulk_knn_build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.testing import faults
+
+    n_ins = rounds * per_round
+    data = make_dataset("sift", n_base + n_ins, seed=0)
+    base, fresh = data[:n_base], data[n_base:]
+    stream_q = make_dataset("sift", n_ins, seed=1)
+    capacity = sift_capacity(n_base, n_ins + CHILD_MAX_BATCHES * CHILD_BATCH)
+    params = sift_params(capacity, strategy="local")
+    root = scratch_dir("durable-")
+    out = {"n_base": n_base, "capacity": capacity, "rounds": rounds,
+           "per_round": per_round, "checkpoint_dir_fs": fs_type(root)}
+    t_phase = time.perf_counter()
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        kops.reset_launches()                   # the durable path starts here
+        t = time.perf_counter()
+        state = bulk_knn_build(base, np.ones(n_base, bool), params, k_nn=64,
+                               device=device)
+        sync()
+        out["build_s"] = time.perf_counter() - t
+
+        def run(sess, first_op: int, plan=None):
+            """Ops first_op.. of the stream (query, insert, delete per round,
+            a flush after each round and save(1) after round 1); a resumed
+            run re-runs the flush and save that end the round before
+            first_op, which the kill may have cut. With ``plan`` (the
+            control) it records the journal appends at each round's start,
+            the journal bytes of each round and the save times."""
+            for rnd in range(rounds):
+                sl = slice(rnd * per_round, (rnd + 1) * per_round)
+                if plan is not None:
+                    round_hits.append(plan.hits.get("post-journal-append", 0))
+                for op in range(3):
+                    if 3 * rnd + op < first_op:
+                        continue
+                    if op == 0:
+                        sess.query(stream_q[sl], k=10).result()
+                    elif op == 1:
+                        check(bool((sess.insert(fresh[sl]).result() >= 0).all()),
+                              "durable: an insert was refused")
+                    else:
+                        alive = np.flatnonzero(sess.state.alive.cpu().numpy())
+                        sess.delete(np.random.default_rng(100 + rnd).choice(
+                            alive, per_round, replace=False).astype(np.int32))
+                if 3 * rnd + 3 >= first_op:
+                    sess.flush()
+                    if plan is not None:
+                        out["journal_bytes_per_round"].append(
+                            sess._journal.path.stat().st_size)
+                    if rnd == 0:
+                        t = time.perf_counter()
+                        sess.save(1)
+                        if plan is not None:
+                            out["save_s"].append(time.perf_counter() - t)
+
+        # the control: save(0), the whole stream uninterrupted
+        # (each round's journal holds one META record, the round's three op
+        # records and its JR_FLUSH: save(0) and save(1) reset it)
+        ctrl_dir = root / "control"
+        probe = faults.FaultPlan()
+        round_hits: list = []
+        out["journal_bytes_per_round"] = []
+        with faults.inject(probe):
+            ctrl = Session(params, state=state, seed=0, checkpoint_dir=ctrl_dir,
+                           journal_fsync="flush")
+            t = time.perf_counter()
+            ctrl.save(0)
+            out["save_s"] = [time.perf_counter() - t]
+            out["save_steps_s"] = dict(ctrl._ckpt.timings)
+            hits_after_save0 = probe.hits.get("post-journal-append", 0)
+            run(ctrl, 0, probe)
+        ctrl.flush()
+        out["checkpoint_bytes"] = dir_bytes(ctrl_dir / "step_000000000000")
+
+        # the same stream from a copy of step 0, killed at the journal append
+        # of the last round's insert, then recovered and finished
+        crash_dir = root / "crash"
+        crash_dir.mkdir()
+        shutil.copytree(ctrl_dir / "step_000000000000",
+                        crash_dir / "step_000000000000")
+        shutil.copy(ctrl_dir / "LATEST", crash_dir / "LATEST")
+        shutil.rmtree(ctrl_dir)
+        t = time.perf_counter()
+        sess = Session.recover(crash_dir, params, strategy="local", device=device)
+        out["restore_s"] = time.perf_counter() - t
+        out["restore_steps_s"] = dict(sess._ckpt.timings)
+        check(sess.recovery_info["step"] == 0, "durable: step 0 did not restore")
+        hit = round_hits[-1] - hits_after_save0 + 2
+        plan = faults.crash_once("post-journal-append", hit=hit)
+        crashed = False
+        try:
+            with faults.inject(plan):
+                run(sess, 0)
+        except faults.SimulatedCrash:
+            crashed = True
+        check(crashed and plan.log == [f"crash:post-journal-append#{hit}"],
+              f"durable: the armed crash did not fire ({plan.log})")
+        sess._journal.close()
+        del sess
+        gc.collect()
+        t = time.perf_counter()
+        rec = Session.recover(crash_dir, params, strategy="local", device=device)
+        out["recover_s"] = time.perf_counter() - t
+        out["recovery"] = dict(rec.recovery_info)
+        check(rec.recovery_info["step"] == 1, "durable: step 1 did not restore")
+        run(rec, rec._op_counter)
+        rec.flush()
+        diff = same_session_state(torch, rec, ctrl)
+        check(not diff, f"durable: recovered session differs from the control in {diff}")
+        out["bit_exact_vs_control"] = True
+        del ctrl
+        rec.save(2)
+        rec._journal.close()
+        del rec, state
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+        # a real process, killed with SIGKILL after its second acknowledgement
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--durable-child",
+             str(crash_dir), "--child-capacity", str(capacity), "--child-device",
+             device], stdout=subprocess.PIPE, text=True)
+        acks = kill_child_after(proc, 2, timeout_s=600)
+        out["child_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec = Session.recover(crash_dir, params, strategy="local", device=device)
+        out["recover_after_kill_s"] = time.perf_counter() - t
+        out["recovery_after_kill"] = dict(rec.recovery_info)
+        st = rec.state
+        alive = st.alive.cpu().numpy()
+        for a in acks:
+            ids = np.asarray(a["inserted"], np.int64)
+            check(bool((ids >= 0).all() and alive[ids].all()),
+                  "durable: an acknowledged insert is not alive")
+            rows = st.vectors[torch.as_tensor(ids, device=st.device)].cpu().numpy()
+            check(np.array_equal(rows, child_rows(a["ack"])),
+                  "durable: an acknowledged insert's row differs")
+        for a in acks:
+            dels = np.asarray(a["deleted"], np.int64)
+            back = dels[alive[dels]]
+            # an alive acknowledged delete must be its slot reused by a later
+            # batch's insert: its row is one of that batch's rows
+            later = np.concatenate([child_rows(b) for b in range(
+                a["ack"] + 1, len(acks) + 2)])
+            rows = st.vectors[torch.as_tensor(back, device=st.device)].cpu().numpy()
+            reused = [bool((later == r).all(axis=1).any()) for r in rows]
+            check(all(reused), "durable: an acknowledged delete is alive")
+            out.setdefault("acked_deletes_slot_reused", 0)
+            out["acked_deletes_slot_reused"] += len(back)
+        errs = check_health(st)
+        check(not errs, f"durable: health check after the kill: {errs}")
+        out["acked_batches"] = len(acks)
+        rec._journal.close()
+        del rec, st
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sync()
+    out["launches"] = dict(kops.launches)       # the durable path ends here
+    out["gather_launches_by_shape"] = gather_shape_split(kops)
+    out["peak_mem_gib"] = peak_gib(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def residency(ts) -> dict:
+    """External ids by the tier that holds them ("both": mid-drain)."""
+    import numpy as np
+    out = {"fresh": [], "main": [], "both": []}
+    for e, loc in ts._loc.items():
+        out[loc[0]].append(e)
+    return {k: np.asarray(v, np.int64) for k, v in out.items()}
+
+
+def phase_tiered(torch, n_base: int, per_round: int, rounds: int = 2,
+                 sub: int = 8, device: str = "cuda") -> dict:
+    """Cell sift1m-tiered: a TieredSession whose main tier is the bulk-built
+    10^6 index; rounds of inserts (some upserts), deletes (half on main-
+    resident, half on fresh ids) and queries in ``sub`` batches each, an
+    auto-merge during the stream and an explicit one at the end; every query
+    result held to the host's book; recall before and after; save and
+    recover bit-exact."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import TieredSession
+    from repro_torch.core.graph import DATA_FIELDS, NULL
+    from repro_torch.core.rebuild import bulk_knn_build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import ops as kops
+
+    bs = per_round // sub                   # rows per op
+    n_up = bs // 16                         # upserts of main-resident ids per insert
+    n_new = rounds * sub * bs
+    data = make_dataset("sift", n_base + n_new, seed=0)
+    base = data[:n_base]
+    stream_q = make_dataset("sift", rounds * per_round, seed=1)
+    held = make_dataset("sift", 1000, seed=2)
+    capacity = sift_capacity(n_base, 0)
+    fresh_capacity = capacity // 8
+    # the merge fires once the fresh tier holds half a round of items
+    # (2^10 of 2^17 slots: mid round 1)
+    params = sift_params(capacity, strategy="mask", consolidate_strategy="local",
+                         merge_fresh_threshold=(per_round // 2) / fresh_capacity,
+                         merge_chunk=128)
+    qsearch = dataclasses.replace(params.search, quantized=True, rerank_depth=64)
+    root = scratch_dir("tiered-")
+    out = {"n_base": n_base, "capacity": capacity, "fresh_capacity": fresh_capacity,
+           "rounds": rounds, "per_round": per_round, "ops_per_round": sub,
+           "checkpoint_dir_fs": fs_type(root)}
+    t_phase = time.perf_counter()
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        kops.reset_launches()                   # the tiered path starts here
+        t = time.perf_counter()
+        state = bulk_knn_build(base, np.ones(n_base, bool), params, k_nn=64,
+                               device=device)
+        sync()
+        out["build_s"] = time.perf_counter() - t
+        ts = TieredSession(params, fresh_strategy="global", seed=0,
+                           main_state=state, checkpoint_dir=root, device=device)
+        del state
+        check(ts.fresh_capacity == fresh_capacity, "tiered: fresh capacity")
+        book = np.concatenate([base, np.zeros((n_new, 128), np.float32)])
+        live = np.zeros(n_base + n_new, bool)
+        live[:n_base] = True
+        next_id = n_base
+
+        def recalls(tag):
+            r32 = ts.recall(held, 10)
+            main = ts.main
+            fp32 = main.params
+            main.params = dataclasses.replace(fp32, search=qsearch)
+            try:
+                rq = ts.recall(held, 10)
+            finally:
+                main.params = fp32
+            out[f"recall10_fp32_{tag}"] = r32
+            out[f"recall10_q8_rerank64_{tag}"] = rq
+
+        def check_query(ids, scores, q):
+            got = ids[ids != NULL]
+            check(bool(live[got].all()), "tiered: a query returned a deleted id")
+            # stale: every score is the score of the id's current vector
+            x = book[np.where(ids != NULL, ids, 0)].astype(np.float64)
+            want = 2.0 * np.einsum("bkd,bd->bk", x, q.astype(np.float64)) - (
+                x * x).sum(-1)
+            ok = np.abs(scores - want) <= 1e-4 * np.abs(want) + 1e-2
+            check(bool(ok[ids != NULL].all()),
+                  "tiered: a score differs from the id's current vector (stale)")
+
+        recalls("before")
+        rng = np.random.default_rng(7)
+        op_s = {"query": 0.0, "insert": 0.0, "delete": 0.0}
+        n_q = 0
+        for rnd in range(rounds):
+            for s in range(sub):
+                j = rnd * sub + s
+                where = residency(ts)
+                ups = rng.choice(where["main"][where["main"] < n_base], n_up,
+                                 replace=False)
+                ids = np.concatenate([np.arange(next_id, next_id + bs - n_up), ups])
+                rows = data[n_base + j * bs:n_base + (j + 1) * bs]
+                t = time.perf_counter()
+                acked = ts.insert(rows, ids=ids).result()
+                op_s["insert"] += time.perf_counter() - t
+                check(np.array_equal(acked, ids), "tiered: an insert was not acked")
+                book[ids] = rows
+                live[ids] = True
+                next_id += bs - n_up
+                where = residency(ts)
+                dels = np.concatenate([
+                    rng.choice(where["main"], bs // 2, replace=False),
+                    rng.choice(where["fresh"], bs // 2, replace=False)]).astype(np.int32)
+                t = time.perf_counter()
+                ts.delete(dels).result()
+                op_s["delete"] += time.perf_counter() - t
+                live[dels] = False
+                q = stream_q[j * bs:(j + 1) * bs]
+                t = time.perf_counter()
+                qi, qs = ts.query(q, k=10).result()
+                op_s["query"] += time.perf_counter() - t
+                n_q += len(q)
+                check_query(qi, qs, q)
+                out.setdefault("merge_active_after_op", []).append(
+                    ts.active_merge is not None)
+            ts.flush()
+        out["n_merges_auto"] = ts.timers.n_merges
+        check(any(out["merge_active_after_op"]), "tiered: no auto-merge started")
+        t = time.perf_counter()
+        out["explicit_merge_drained"] = ts.merge()
+        ts.flush()
+        out["explicit_merge_s"] = time.perf_counter() - t
+        ts.check_mirrors()
+        check(set(ts._loc) == set(np.flatnonzero(live).tolist()),
+              "tiered: the live set differs from the host's book")
+        t = time.perf_counter()
+        qi, qs = ts.query(held, k=10).result()
+        out["held_query_s"] = time.perf_counter() - t
+        check_query(qi, qs, held)
+        t = time.perf_counter()
+        ts._fresh_topk(held, 10)
+        out["held_fresh_scan_s"] = time.perf_counter() - t
+        recalls("after")
+        for tag in ("before", "after"):
+            gap = out[f"recall10_fp32_{tag}"] - out[f"recall10_q8_rerank64_{tag}"]
+            check(gap <= 0.02, f"tiered: quantized+rerank recall trails fp32 by {gap}")
+        out["items_per_s"] = {"query": n_q / op_s["query"],
+                              "insert": rounds * per_round / op_s["insert"],
+                              "delete": rounds * per_round / op_s["delete"]}
+        out["merge_s"] = ts.timers.merge_s
+        out["n_merges"] = ts.timers.n_merges
+        out["n_merged"] = ts.timers.n_merged
+        out["stats"] = ts.stats()
+
+        # save and recover once, bit-exact against the saved state
+        t = time.perf_counter()
+        ts.save(1)
+        out["save_s"] = time.perf_counter() - t
+        out["save_steps_s"] = dict(ts._ckpt.timings)
+        out["checkpoint_bytes"] = dir_bytes(root / "step_000000000001")
+        ts._journal.close()
+        t = time.perf_counter()
+        rec = TieredSession.recover(root, params, fresh_strategy="global", seed=0,
+                                    device=device)
+        out["recover_s"] = time.perf_counter() - t
+        out["recovery"] = dict(rec.recovery_info)
+        out["restore_steps_s"] = dict(rec._ckpt.timings)
+        for name, a, b in (("fresh", rec.fresh, ts.fresh), ("main", rec.main, ts.main)):
+            bad = [f for f in DATA_FIELDS
+                   if not torch.equal(getattr(a.state, f), getattr(b.state, f))]
+            check(not bad and a._op_counter == b._op_counter,
+                  f"tiered: recovered {name} tier differs in {bad}")
+        check(rec._loc == ts._loc and (rec._op_counter, rec._merge_counter,
+                                       rec._merges_done, rec._next_ext) == (
+            ts._op_counter, ts._merge_counter, ts._merges_done, ts._next_ext),
+              "tiered: recovered counters or locations differ")
+        for a, b in ((rec._fm, ts._fm), (rec._mm, ts._mm)):
+            check(np.array_equal(a.ext, b.ext) and np.array_equal(a.present, b.present),
+                  "tiered: recovered mirrors differ")
+        out["bit_exact_after_recover"] = True
+        rec._journal.close()
+        del rec, ts
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sync()
+    out["launches"] = dict(kops.launches)       # the tiered path ends here
+    out["gather_launches_by_shape"] = gather_shape_split(kops)
+    out["peak_mem_gib"] = peak_gib(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,parity,sift1m,maint")
+    ap.add_argument("--phases",
+                    default="build,kernels,parity,sift1m,maint,durable,tiered")
     ap.add_argument("--n-base", type=int, default=1_000_000)
     # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
     # near half its time limit (PERF.md §4)
@@ -997,7 +1517,14 @@ def main(argv=None) -> int:
     ap.add_argument("--per-round", type=int, default=2048)
     ap.add_argument("--maint-steps", type=int, default=2)
     ap.add_argument("--maint-queries", type=int, default=1000)
+    # the durable phase's child process (started by the phase itself)
+    ap.add_argument("--durable-child", help=argparse.SUPPRESS)
+    ap.add_argument("--child-capacity", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--child-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.durable_child:
+        return durable_child(args.durable_child, args.child_capacity,
+                             args.child_device)
 
     try:
         import torch
@@ -1024,7 +1551,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift, maint = {}, {}
+    sift, maint, durable, tiered = {}, {}, {}, {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -1055,6 +1582,24 @@ def main(argv=None) -> int:
             maint = phase_maint(torch, args.n_base, args.per_round, args.maint_steps,
                                 args.maint_queries)
             emit({"phase": "maint", "card": smi, **maint})
+            torch.cuda.empty_cache()
+        if phases & {"durable", "tiered"} and (
+                args.n_base != 1_000_000 or args.per_round != 2048):
+            emit({"reduced": {"durable_tiered": {
+                "n_base": args.n_base, "per_round": args.per_round,
+                "of": {"n_base": 1_000_000, "per_round": 2048}}}})
+        if "durable" in phases:
+            durable = phase_durable(torch, args.n_base, args.per_round)
+            emit({"phase": "durable", "card": smi, **durable})
+            for name in ("gather_scores", "score_matrix", "score_topk"):
+                check(durable["launches"][name] > 0,
+                      f"kernel {name} was not launched on the durable path")
+            torch.cuda.empty_cache()
+        if "tiered" in phases:
+            tiered = phase_tiered(torch, args.n_base, args.per_round)
+            emit({"phase": "tiered", "card": smi, **tiered})
+            for name, n in tiered["launches"].items():
+                check(n > 0, f"kernel {name} was not launched on the tiered path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1066,6 +1611,8 @@ def main(argv=None) -> int:
             "replaces": meta["replaces"], "tpu_source": meta["replaces"],
             "launches": sift.get("launches", {}).get(name, 0),
             "launches_maint": maint.get("launches", {}).get(name, 0),
+            "launches_durable": durable.get("launches", {}).get(name, 0),
+            "launches_tiered": tiered.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

@@ -47,6 +47,12 @@ UNPORTED_STRATEGIES = ("local_reference", "global_reference",
                        "rwalk_reference")
 
 
+def unported_message(strategy: str) -> str:
+    return (f"delete strategy {strategy!r} is not ported to repro_torch: the "
+            f"sequential *_reference strategies {UNPORTED_STRATEGIES} are "
+            "the part of the JAX package's delete module that stays unported")
+
+
 def _dead_mask(state: GraphState, ids: torch.Tensor, valid: torch.Tensor
                ) -> torch.Tensor:
     m = torch.zeros((state.capacity,), dtype=torch.bool, device=state.device)
@@ -284,8 +290,7 @@ def delete_batch(state: GraphState, ids, valid, key: torch.Tensor,
                  strategy: str, params: IndexParams) -> GraphState:
     """Delete the valid lanes of ``ids`` with ``strategy`` — in place."""
     if strategy in UNPORTED_STRATEGIES:
-        raise NotImplementedError(
-            f"delete strategy {strategy!r} is not ported to repro_torch yet")
+        raise NotImplementedError(unported_message(strategy))
     dev = state.device
     ids = torch.as_tensor(ids, dtype=torch.int32).to(dev)
     valid = torch.as_tensor(valid, dtype=torch.bool).to(dev)

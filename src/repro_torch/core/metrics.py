@@ -15,9 +15,14 @@ def brute_force_topk(state: GraphState, queries, k: int
 
     The alive rows are gathered in id order and scored through
     ``kernels.ops.score_topk``; positions map back to slot ids, so ties
-    still go to the lowest id and missing entries are (-inf, NULL)."""
+    still go to the lowest id and missing entries are (-inf, NULL). A state
+    with no alive slot returns only missing entries."""
     q = torch.as_tensor(queries, dtype=torch.float32).to(state.device)
     alive_ids = torch.nonzero(state.alive).flatten()
+    if alive_ids.numel() == 0:
+        return (torch.full((q.shape[0], k), NEG_INF, device=state.device),
+                torch.full((q.shape[0], k), NULL, dtype=torch.int32,
+                           device=state.device))
     x = state.vectors[alive_ids].contiguous()
     xsq = state.sqnorms[alive_ids].contiguous()
     s, pos = kernel_ops.score_topk(x, xsq, q, k, metric=state.metric)

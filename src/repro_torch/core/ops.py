@@ -8,6 +8,8 @@ batch's op code. Update branches modify the state in place where the JAX
 step takes it donated. The maintenance branches (OP_CONSOLIDATE,
 OP_REFINE) are operand-free: each picks its own slots at its stream
 position, and their codes come from the registry in ``core/maint.py``.
+The journal's record codes (stream ops under their OP_* code, plus the
+JR_* codes below) are frozen the same way.
 """
 from __future__ import annotations
 
@@ -19,10 +21,17 @@ import torch
 from repro_torch.core import consolidate as consolidate_mod
 from repro_torch.core import delete as delete_mod
 from repro_torch.core import insert as insert_mod
+from repro_torch.core import maint, search
 from repro_torch.core import refine as refine_mod
-from repro_torch.core import search
 from repro_torch.core.graph import NULL, GraphState, mask_to_slots
-from repro_torch.core.maint import OP_CONSOLIDATE, OP_REFINE
+from repro_torch.core.maint import (  # noqa: F401  (re-exported codes)
+    JR_CONSOLIDATE,
+    JR_GROW,
+    JR_MERGE,
+    JR_REFINE,
+    OP_CONSOLIDATE,
+    OP_REFINE,
+)
 from repro_torch.core.params import IndexParams
 
 OP_QUERY = 0
@@ -33,6 +42,14 @@ OP_NOOP = 3
 OP_NAMES = {OP_QUERY: "query", OP_INSERT: "insert", OP_DELETE: "delete",
             OP_NOOP: "noop", OP_CONSOLIDATE: "consolidate",
             OP_REFINE: "refine"}
+
+# journal-only record codes (``checkpoint/journal.py``): the journal header,
+# flush points (a maintenance trigger site) and explicit maintenance calls
+JR_META = 16
+JR_FLUSH = 17
+
+JR_NAMES = {JR_META: "meta", JR_FLUSH: "flush",
+            **{op.journal_code: f"{op.name}!" for op in maint.REGISTRY}}
 
 
 @dataclasses.dataclass(frozen=True)

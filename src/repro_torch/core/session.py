@@ -25,25 +25,39 @@ Maintenance, as in JAX:
 The triggers are gated by host hints that only ever err toward checking;
 the device-exact count (a sync) runs only when a hint crosses.
 
-Journal and checkpoints are not ported yet: a session asked for them raises
-``NotImplementedError``.
+Durability, as in JAX: a session with a ``checkpoint_dir`` arms a
+write-ahead op journal (``checkpoint/journal.py``) — every op appends a
+checksummed record *before* it is applied, ``save`` writes a checkpoint in
+the JAX package's layout and truncates the log, and :meth:`Session.recover`
+rebuilds a crashed session as the newest complete checkpoint plus a replay
+of the journaled suffix. Replay is bit-exact: op keys are a pure function of
+stream position, the auto-maintenance decisions a pure function of the
+device-exact state, and the host-initiated trigger sites replay needs
+(flushes, explicit consolidate/grow/refine) are journaled as marker records.
+Auto-triggered maintenance is not journaled — the replayed stream re-derives
+it. Checkpoints and journals cross between the two packages both ways.
+Crash points (``repro_torch.testing.faults``) sit where JAX has them.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import journal as journal_mod
+from repro_torch.checkpoint import manager as manager_mod
 from repro_torch.core import delete as delete_mod
 from repro_torch.core import maint, metrics, prng, quantize, rebuild
 from repro_torch.core import ops as ops_mod
 from repro_torch.core.graph import (
     NULL,
     GraphState,
+    graph_state_from_numpy,
     graph_stats,
     grow_state,
     init_graph,
@@ -51,6 +65,7 @@ from repro_torch.core.graph import (
 )
 from repro_torch.core.ops import OP_DELETE, OP_INSERT, OP_QUERY
 from repro_torch.core.params import IndexParams
+from repro_torch.testing import faults
 
 
 @dataclasses.dataclass
@@ -58,8 +73,8 @@ class PhaseTimers:
     """Flush-based phase accounting: per-phase ``*_s`` fields are host
     dispatch time, ``flush_s`` the synchronous waits, ``wall_s`` the busy
     wall-clock from the first dispatch of a window to the flush closing it.
-    ``merge_s``/``n_merges``/``n_merged`` stay zero until the two-tier index
-    is ported."""
+    ``merge_s``/``n_merges``/``n_merged`` count the two-tier index's
+    streaming merges (``core/merge.py``)."""
 
     query_s: float = 0.0
     insert_s: float = 0.0
@@ -193,23 +208,26 @@ def params_fingerprint(params: IndexParams, strategy: str) -> str:
 
 
 class Session:
-    """Device-resident streaming session over one proximity-graph index."""
+    """Device-resident streaming session over one proximity-graph index.
+
+    The keyword arguments are JAX's, with their defaults, plus ``device``;
+    JAX's ``unified_dispatch`` picks between compiled programs and has no
+    counterpart in eager PyTorch. ``journal=None`` arms the write-ahead
+    journal whenever ``checkpoint_dir`` is set; ``journal_fsync`` is its
+    policy (``"always"``, ``"flush"`` or ``"never"``); ``flush_retries`` and
+    ``flush_backoff_s`` bound the retries of a transient sync failure."""
 
     def __init__(self, params: IndexParams, *, strategy: str | None = None,
                  seed: int = 0, state: GraphState | None = None, device=None,
-                 checkpoint_dir=None, journal: bool | None = None):
+                 checkpoint_dir: str | Path | None = None,
+                 checkpoint_keep: int = 3, journal: bool | None = None,
+                 journal_fsync: str = "flush", flush_retries: int = 3,
+                 flush_backoff_s: float = 0.005):
         strategy = strategy if strategy is not None else params.maintenance.strategy
         if strategy in delete_mod.UNPORTED_STRATEGIES:
-            raise NotImplementedError(
-                f"delete strategy {strategy!r} is not ported to repro_torch")
+            raise NotImplementedError(delete_mod.unported_message(strategy))
         if strategy not in delete_mod.STRATEGIES:
             raise ValueError(f"strategy must be one of {delete_mod.STRATEGIES}")
-        unported = [name for name, armed in (
-            ("checkpoint_dir", checkpoint_dir is not None),
-            ("journal", bool(journal))) if armed]
-        if unported:
-            raise NotImplementedError(
-                f"not ported to repro_torch yet: {', '.join(unported)}")
         if state is not None and device is not None and (
                 torch.device(device).type != state.device.type):
             raise ValueError(f"state lives on {state.device}, not {device}")
@@ -229,7 +247,8 @@ class Session:
         # `_masked_hint` overestimates the tombstones, `_present_floor`
         # underestimates the present slots and `_free_hint` the free ones,
         # so the host gates only ever err toward the device-exact check.
-        # `_refine_wear` counts update rows dispatched since the last refine.
+        # `_refine_wear` counts update rows dispatched since the last refine
+        # (a pure function of the op stream, checkpointed with the counter).
         self._consolidate_counter = 0
         self._in_consolidate = False
         self._masked_hint = 0
@@ -243,6 +262,24 @@ class Session:
         if (state is not None
                 or params.maintenance.consolidate_threshold is not None):
             self._refresh_hints()
+        self._ckpt = None
+        if checkpoint_dir is not None:
+            self._ckpt = manager_mod.CheckpointManager(checkpoint_dir,
+                                                       keep=checkpoint_keep)
+        # a constructed session is a fresh timeline: attaching resets the
+        # journal (a META record with the fingerprint); only recover()
+        # extends an existing one. One writer per directory.
+        self.recovering = False
+        self.recovery_info: dict | None = None
+        self._journal = None
+        self._journal_fsync = journal_fsync
+        self._flush_retries = int(flush_retries)
+        self._flush_backoff_s = float(flush_backoff_s)
+        if journal is None:
+            journal = checkpoint_dir is not None
+        if journal:
+            self._require_ckpt()
+            self._attach_journal(fresh=True)
 
     @property
     def state(self) -> GraphState:
@@ -262,6 +299,36 @@ class Session:
         key = prng.fold_in(self._base_key, self._op_counter)
         self._op_counter += 1
         return key
+
+    # -- write-ahead journal -----------------------------------------------
+    def _fingerprint(self) -> str:
+        return params_fingerprint(self.params, self.strategy)
+
+    def _attach_journal(self, *, fresh: bool) -> None:
+        path = Path(self._ckpt.dir) / "journal.bin"
+        self._journal = journal_mod.OpJournal(path, fsync=self._journal_fsync)
+        if fresh:
+            self._journal.reset(meta={
+                "fingerprint": self._fingerprint()})
+        else:
+            # recovery: drop the torn tail so new appends extend a clean prefix
+            self._journal.repair()
+
+    def _journal_append(self, code: int, *, payload=None, ids=None,
+                        aux: dict | None = None) -> None:
+        """Append one record *before* the action it describes. ``seq`` is
+        the op counter; ``cseq`` a maintenance record's own counter (the
+        consolidate counter for every other record), so recovery skips what
+        a later checkpoint already holds."""
+        if self._journal is None:
+            return
+        mop = maint.by_journal_code(code)
+        cseq = (getattr(self, mop.counter_attr)
+                if mop is not None and mop.counter_attr is not None
+                else self._consolidate_counter)
+        self._journal.append(code, seq=self._op_counter, cseq=cseq,
+                             payload=payload, ids=ids, aux=aux)
+        faults.crash_point("post-journal-append")
 
     def _dispatch(self, op_code: int, arr: np.ndarray, chunk: int, *,
                   fold_chunk_key: bool = False) -> OpHandle:
@@ -316,6 +383,9 @@ class Session:
         """Batched ANN query; ``handle.result()`` → (ids, scores)."""
         q = np.asarray(queries, np.float32)
         k = k if k is not None else self.params.search.pool_size
+        # a query changes no state but consumes an op key: replay must know
+        # it happened, so a count-only record keeps the journal cheap
+        self._journal_append(OP_QUERY, aux={"n": int(q.shape[0])})
         t0 = time.perf_counter()
         h = self._dispatch(OP_QUERY, q, chunk or self.chunk)
         h.k = min(k, self.params.search.pool_size)
@@ -325,11 +395,13 @@ class Session:
 
     def insert(self, vectors, *, chunk: int | None = None) -> OpHandle:
         """Batch insert; ``handle.result()`` → assigned ids. Rows with a
-        NaN/Inf are rejected at dispatch (NULL id, ``timers.n_rejected``).
+        NaN/Inf are rejected at dispatch (NULL id, ``timers.n_rejected``);
+        the journal keeps them raw, so replay rejects them again.
         The insert boundary is where the index compacts and grows to make
         room (:meth:`_ensure_room`); rows it still cannot take are counted
         in ``timers.n_refused``."""
         v = np.asarray(vectors, np.float32)
+        self._journal_append(OP_INSERT, payload=v, aux={"chunk": chunk})
         total, keep = v.shape[0], None
         if total:
             finite = np.isfinite(v).all(axis=1)
@@ -355,6 +427,8 @@ class Session:
         tombstone set, so it is a consolidation trigger point."""
         arr = np.asarray(ids, np.int32)
         eff_chunk = chunk or self.params.maintenance.delete_chunk
+        # repair keys fold the chunk index, so the width is part of the op
+        self._journal_append(OP_DELETE, ids=arr, aux={"chunk": int(eff_chunk)})
         t0 = time.perf_counter()
         h = self._dispatch(OP_DELETE, arr, eff_chunk, fold_chunk_key=True)
         self.timers.delete_s += time.perf_counter() - t0
@@ -381,8 +455,10 @@ class Session:
         self._free_hint = self._state.capacity - self._present_floor
 
     def _run_maint(self, mop: maint.MaintOp, chunk: int, n: int,
-                   params: IndexParams) -> OpHandle:
-        """Apply ceil(n/chunk) operand-free ``mop`` micro-batches."""
+                   params: IndexParams, step_point: str | None = None
+                   ) -> OpHandle:
+        """Apply ceil(n/chunk) operand-free ``mop`` micro-batches, passing
+        ``step_point`` after each."""
         if self._window_t0 is None:
             self._window_t0 = time.perf_counter()
         batch = ops_mod.make_op(mop.op_code, chunk, self.params.dim,
@@ -393,17 +469,26 @@ class Session:
                 self._state, batch, self._maint_key(mop), params,
                 self.strategy)
             chunks.append((ids, scores, min(chunk, n - lo)))
+            if step_point is not None:
+                faults.crash_point(step_point)
         return self._track(mop.name, n, chunks)
 
     def consolidate(self, *, strategy: str | None = None,
                     chunk: int | None = None,
-                    _n_masked: int | None = None) -> int:
+                    _n_masked: int | None = None,
+                    _auto: bool = False) -> int:
         """Physically remove every tombstone: ceil(n/chunk) OP_CONSOLIDATE
         micro-batches, each compacting the lowest-id tombstones at its
         stream position with ``consolidate_strategy`` (or ``strategy``).
         Reads the exact tombstone count (a sync) unless the trigger passes
         the count it just measured. Returns the number consolidated; the
-        work itself is enqueued (settled by ``flush`` or reads)."""
+        work itself is enqueued (settled by ``flush`` or reads). Only
+        explicit calls journal (JR_CONSOLIDATE): auto passes (``_auto``)
+        are re-derived by replay."""
+        if not _auto:
+            self._journal_append(ops_mod.JR_CONSOLIDATE,
+                                 aux={"strategy": strategy, "chunk": chunk})
+        faults.crash_point("pre-consolidate")
         t0 = time.perf_counter()
         n_masked = (int(self._state.masked.sum())
                     if _n_masked is None else int(_n_masked))
@@ -426,6 +511,7 @@ class Session:
         self._masked_hint = 0
         self._present_floor = max(self._present_floor - n_masked, 0)
         self._free_hint += n_masked
+        faults.crash_point("post-consolidate")
         return n_masked
 
     def _maybe_consolidate(self) -> int:
@@ -442,25 +528,34 @@ class Session:
             return 0
         self._in_consolidate = True
         try:
-            return self.consolidate(_n_masked=self._masked_hint)
+            return self.consolidate(_n_masked=self._masked_hint, _auto=True)
         finally:
             self._in_consolidate = False
 
-    def refine(self, *, n: int | None = None, chunk: int | None = None) -> int:
+    def refine(self, *, n: int | None = None, chunk: int | None = None,
+               _auto: bool = False) -> int:
         """Re-wire the ``n`` (default one chunk) stalest alive slots at
         construction quality: ceil(n/chunk) OP_REFINE micro-batches. Returns
-        the number submitted; the work itself is enqueued."""
+        the number submitted; the work itself is enqueued. Only explicit
+        calls journal (JR_REFINE)."""
+        if not _auto:
+            self._journal_append(
+                maint.REFINE.journal_code,
+                aux={"n": None if n is None else int(n),
+                     "chunk": None if chunk is None else int(chunk)})
+        faults.crash_point("refine-begin")
         t0 = time.perf_counter()
         mp = self.params.maintenance
         chunk = int(chunk) if chunk else (mp.refine_chunk or mp.insert_chunk)
         n_alive = int(self._state.alive.sum())
         n_target = min(chunk if n is None else int(n), n_alive)
-        self._refine_wear = 0
+        self._refine_wear = 0  # any pass resets the odometer (replay too)
         if n_target <= 0:
             self.timers.refine_s += time.perf_counter() - t0
             return 0
-        self.last_refine_handle = self._run_maint(maint.REFINE, chunk,
-                                                  n_target, self.params)
+        self.last_refine_handle = self._run_maint(
+            maint.REFINE, chunk, n_target, self.params,
+            step_point="refine-step")
         self.timers.n_refines += 1
         self.timers.n_refined += n_target
         self.timers.refine_s += time.perf_counter() - t0
@@ -474,7 +569,7 @@ class Session:
             return 0
         self._in_refine = True
         try:
-            return self.refine()
+            return self.refine(_auto=True)
         finally:
             self._in_refine = False
 
@@ -491,22 +586,23 @@ class Session:
         if free < n and self._masked_hint > 0 and (
                 mp.consolidate_threshold is not None
                 or mp.max_capacity is not None):
-            free += self.consolidate(_n_masked=self._masked_hint)
+            free += self.consolidate(_n_masked=self._masked_hint, _auto=True)
         if free < n and mp.max_capacity is not None:
             cap = self._state.capacity
             target = next_capacity_tier(cap, cap - free + n, mp.growth_factor,
                                         mp.max_capacity)
             if target > cap:
-                self.grow(target)
+                self.grow(target, _auto=True)
                 free += target - cap
         if free < n:
             self.timers.n_refused += n - free
         self._free_hint = free
 
-    def grow(self, new_capacity: int) -> None:
+    def grow(self, new_capacity: int, *, _auto: bool = False) -> None:
         """Move the state to a larger capacity tier (``graph.grow_state``):
         slots keep their ids, new slots arrive free. An armed session
-        enforces ``maintenance.max_capacity``."""
+        enforces ``maintenance.max_capacity``. Explicit moves journal
+        (JR_GROW)."""
         t0 = time.perf_counter()
         if new_capacity == self._state.capacity:
             return
@@ -515,6 +611,10 @@ class Session:
             raise ValueError(
                 f"new_capacity {new_capacity} exceeds maintenance."
                 f"max_capacity {ceiling}")
+        if not _auto:
+            self._journal_append(ops_mod.JR_GROW,
+                                 aux={"new_capacity": int(new_capacity)})
+        faults.crash_point("pre-grow")
         if self._window_t0 is None:
             self._window_t0 = t0
         grown = grow_state(self._state, new_capacity)
@@ -522,23 +622,51 @@ class Session:
         self._state = grown
         self.timers.n_grows += 1
         self.timers.grow_s += time.perf_counter() - t0
+        faults.crash_point("post-grow")
 
     def flush(self) -> PhaseTimers:
-        """Run the consolidate and refine triggers, then block until every
-        dispatched op has run; settle the timers."""
+        """Journal a JR_FLUSH marker, run the consolidate and refine
+        triggers, then block until every dispatched op has run and settle
+        the timers. The triggers make *when* a flush happened part of the
+        stream, so replay re-flushes at the marked positions."""
+        faults.crash_point("pre-flush")
+        self._journal_append(ops_mod.JR_FLUSH)
         self._maybe_consolidate()
         self._maybe_refine()
+        self._sync()
+        faults.crash_point("post-flush")
+        return self.timers
+
+    def _sync(self) -> None:
+        """The synchronisation body of :meth:`flush`, without the marker and
+        the triggers: recovery settles replayed work through it, so it can
+        fire no compaction the original timeline never saw. Transient
+        failures are retried with exponential backoff (counted in
+        ``timers.n_retries``); exhaustion re-raises. Under policy
+        ``"flush"`` this is the journal's durability barrier."""
         t0 = time.perf_counter()
-        for h in list(self._pending):
-            h.block()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        attempt = 0
+        while True:
+            try:
+                faults.transient_point("flush")
+                for h in list(self._pending):  # block() retires in place
+                    h.block()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                break
+            except faults.TransientDispatchError:
+                if attempt >= self._flush_retries:
+                    raise
+                self.timers.n_retries += 1
+                time.sleep(self._flush_backoff_s * (2.0 ** attempt))
+                attempt += 1
         self._pending.clear()
+        if self._journal is not None and self._journal.fsync_policy == "flush":
+            self._journal.sync()  # flush is the acknowledgement barrier
         self.timers.flush_s += time.perf_counter() - t0
         if self._window_t0 is not None:
             self.timers.wall_s += time.perf_counter() - self._window_t0
             self._window_t0 = None
-        return self.timers
 
     def _live_params(self) -> IndexParams:
         """``self.params`` with ``capacity`` pinned to the live tier."""
@@ -586,3 +714,221 @@ class Session:
         out["n_refused"] = self.timers.n_refused
         out.update(self.timers.maintenance_counters())
         return out
+
+    # -- checkpoints -------------------------------------------------------
+    def _require_ckpt(self) -> manager_mod.CheckpointManager:
+        if self._ckpt is None:
+            raise ValueError(
+                "session has no checkpoint_dir; pass checkpoint_dir= to "
+                "Session(...) to enable save/restore")
+        return self._ckpt
+
+    def _ckpt_tree(self) -> dict:
+        """The JAX session's checkpoint tree: the key as uint32[2]."""
+        return {"graph": self._state, "base_key": key_to_uint32(self._base_key)}
+
+    def save(self, step: int) -> Path:
+        """Checkpoint the state, the PRNG chain, the counters and the params
+        fingerprint; the live capacity tier is recorded beside it. A
+        published checkpoint subsumes the journal, which is reset."""
+        mgr = self._require_ckpt()
+        self.flush()
+        extra = {
+            "fingerprint": self._fingerprint(),
+            "capacity": int(self._state.capacity),
+            "op_counter": self._op_counter,
+            "timers": self.timers.to_dict(),
+        }
+        for mop in maint.SESSION_OPS:
+            if mop.extra_key is not None:
+                extra[mop.extra_key] = int(getattr(self, mop.counter_attr))
+            for attr, ekey in mop.state_attrs:
+                extra[ekey] = int(getattr(self, attr))
+        path = mgr.save(step, self._ckpt_tree(), extra=extra)
+        # a crash before the reset is safe: recovery skips the records whose
+        # seq/cseq the restored counters already cover
+        faults.crash_point("post-checkpoint-save")
+        if self._journal is not None:
+            self._journal.reset(meta={
+                "fingerprint": self._fingerprint()})
+        return path
+
+    def restore(self, step: int | None = None) -> int:
+        """Restore a saved step (the newest that validates when ``None``,
+        walking back past corrupt ones; an explicit step raises
+        ``CheckpointCorruptError``). Refuses a checkpoint of another
+        (params, strategy) fingerprint or of a capacity below
+        ``params.capacity``. Restoring rewinds the timeline, so an attached
+        journal is reset. Returns the restored step."""
+        mgr = self._require_ckpt()
+        self.flush()
+        step, tree, extra = restore_walking_back(mgr, step, self._ckpt_tree())
+        if extra.get("fingerprint") != self._fingerprint():
+            raise ValueError(
+                "checkpoint params/strategy fingerprint mismatch — refusing "
+                "to restore an index saved under a different configuration")
+        saved_cap = int(extra.get("capacity", tree["graph"]["alive"].shape[0]))
+        if saved_cap < self.params.capacity:
+            raise ValueError(
+                f"checkpoint capacity {saved_cap} is below this "
+                f"configuration's initial capacity {self.params.capacity} "
+                "— shrinking an allocator is not supported, refusing to "
+                "restore")
+        st = self._state
+        t0 = time.perf_counter()
+        self._state = graph_state_from_numpy(
+            tree["graph"], capacity=saved_cap, dim=st.dim, d_out=st.d_out,
+            d_in=st.d_in, metric=st.metric, device=self.device)
+        mgr.timings["to_device_s"] = time.perf_counter() - t0
+        self._base_key = key_from_uint32(tree["base_key"])
+        self._op_counter = int(extra["op_counter"])
+        for mop in maint.SESSION_OPS:
+            if mop.extra_key is not None:
+                setattr(self, mop.counter_attr,
+                        int(extra.get(mop.extra_key, 0)))
+            for attr, ekey in mop.state_attrs:
+                setattr(self, attr, int(extra.get(ekey, 0)))
+        self._refresh_hints()
+        if self._journal is not None:
+            self._journal.reset(meta={
+                "fingerprint": self._fingerprint()})
+        return step
+
+    @classmethod
+    def recover(cls, checkpoint_dir: str | Path, params: IndexParams, *,
+                strategy: str | None = None, seed: int = 0, device=None,
+                checkpoint_keep: int = 3, journal_fsync: str = "flush",
+                flush_retries: int = 3, flush_backoff_s: float = 0.005
+                ) -> "Session":
+        """Rebuild a crashed session from ``checkpoint_dir``.
+
+        Restores the newest checkpoint that validates, scans the journal
+        (dropping a torn or corrupt tail) and replays the suffix through the
+        normal op path: records whose ``seq``/``cseq`` the restored counters
+        cover are skipped, queries only advance the key chain, JR_FLUSH
+        re-runs the flush triggers, maintenance records go through the
+        registry's replay hooks, and a sequence gap (the newest checkpoint
+        was corrupt and the journal already truncated past the fallback)
+        ends the replay. The result is bit-identical to the uninterrupted
+        run over the same acknowledged prefix. Replayed records stay in the
+        journal until the next ``save``, so a crash during or after recovery
+        recovers again from the same disk state.
+        """
+        sess = cls(params, strategy=strategy, seed=seed, device=device,
+                   checkpoint_dir=checkpoint_dir,
+                   checkpoint_keep=checkpoint_keep, journal=False,
+                   journal_fsync=journal_fsync, flush_retries=flush_retries,
+                   flush_backoff_s=flush_backoff_s)
+        replay_journal(sess, "session")
+        return sess
+
+    # replay_journal's hooks: what one journaled stream op does on replay
+    def _replay_query(self, rec) -> None:
+        self._op_key()  # results are gone; only the chain advances
+
+    def _replay_insert(self, rec) -> None:
+        self.insert(rec.payload, chunk=rec.aux.get("chunk"))
+
+    def _replay_delete(self, rec) -> None:
+        self.delete(rec.ids, chunk=rec.aux.get("chunk"))
+
+
+def replay_journal(sess, tier: str) -> None:
+    """The body of ``recover`` for a session of ``tier`` ("session" or
+    "tiered") constructed without a journal: restore the newest valid
+    checkpoint, replay the journal suffix, settle, attach the journal and
+    fill ``recovery_info``.
+
+    Records whose ``seq`` the restored op counter covers are skipped;
+    stream ops replay through the session's ``_replay_*`` hooks; JR_FLUSH
+    re-runs ``flush`` (its triggers); maintenance records go through the
+    registry's replay hooks, which dedup on ``cseq``; a sequence gap (the
+    newest checkpoint was corrupt and the journal already truncated past
+    the fallback) ends the replay, and the dead suffix is discarded for a
+    fresh journal. Settling uses ``_sync``, never the flush trigger.
+    """
+    sess.recovering = True
+    t0 = time.perf_counter()
+    records, _, dropped = journal_mod.scan_file(
+        Path(sess._ckpt.dir) / "journal.bin")
+    step = None
+    try:
+        step = sess.restore(None)  # journal not attached: no reset
+    except FileNotFoundError:
+        pass  # crashed before the first checkpoint: replay from empty
+    want = sess._fingerprint()
+    n_replayed = n_skipped = n_unreplayable = 0
+    for idx, rec in enumerate(records):
+        code = rec.code
+        if code == ops_mod.JR_META:
+            fp = rec.aux.get("fingerprint")
+            if fp is not None and fp != want:
+                raise ValueError(
+                    "journal params/strategy fingerprint mismatch — refusing "
+                    "to replay ops recorded under a different configuration")
+            continue
+        if code in (OP_QUERY, OP_INSERT, OP_DELETE, ops_mod.JR_FLUSH):
+            if rec.seq < sess._op_counter:
+                n_skipped += 1
+                continue
+            if code != ops_mod.JR_FLUSH and rec.seq > sess._op_counter:
+                n_unreplayable = len(records) - idx
+                break
+        if code == OP_QUERY:
+            sess._replay_query(rec)
+        elif code == OP_INSERT:
+            sess._replay_insert(rec)
+        elif code == OP_DELETE:
+            sess._replay_delete(rec)
+        elif code == ops_mod.JR_FLUSH:
+            sess.flush()
+        else:
+            mop = maint.by_journal_code(code)
+            if mop is None or mop.tier != tier:
+                raise ValueError(f"unknown journal record code {code}")
+            if not mop.replay(sess, rec):
+                n_skipped += 1
+                continue
+        n_replayed += 1
+    sess._sync()
+    sess._attach_journal(fresh=n_unreplayable > 0)
+    sess.recovering = False
+    sess.recovery_info = {
+        "step": step,
+        "n_replayed": n_replayed,
+        "n_skipped": n_skipped,
+        "n_unreplayable": n_unreplayable,
+        "dropped_bytes": int(dropped),
+        "replay_s": time.perf_counter() - t0,
+    }
+
+
+def key_to_uint32(key: torch.Tensor) -> np.ndarray:
+    """A port key (int64 ``[2]`` of uint32 words) as JAX's uint32[2]."""
+    return key.cpu().numpy().astype(np.uint32)
+
+
+def key_from_uint32(words) -> torch.Tensor:
+    """JAX's uint32[2] key data as a port key."""
+    return torch.as_tensor(np.asarray(words, np.uint32).astype(np.int64))
+
+
+def restore_walking_back(mgr: manager_mod.CheckpointManager,
+                         step: int | None, like) -> tuple[int, dict, dict]:
+    """``mgr.restore`` of ``step``, or of the newest complete step that
+    validates when ``step`` is None. Returns (step, tree, extra)."""
+    if step is not None:
+        tree, extra = mgr.restore(step, like)
+        return step, tree, extra
+    steps = mgr.all_steps()
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint in {mgr.dir}")
+    errors: list[str] = []
+    for s in reversed(steps):
+        try:
+            tree, extra = mgr.restore(s, like)
+            return s, tree, extra
+        except manager_mod.CheckpointCorruptError as e:
+            errors.append(str(e))
+    raise manager_mod.CheckpointCorruptError(
+        "every checkpoint step is corrupt:\n  " + "\n  ".join(errors))

@@ -105,15 +105,16 @@ def test_params_fingerprint_and_dataset_match():
                               jmake_dataset(name, 300, seed=4))
 
 
-def test_session_device_and_unported_features(monkeypatch):
-    """What stays unported raises: the journal, checkpoints and the
-    sequential reference strategies."""
+def test_session_device_and_unported_features(monkeypatch, tmp_path):
+    """What stays unported raises: the sequential reference strategies. A
+    checkpoint directory arms the journal; a journal needs a directory."""
     p = torch_params(_params("global"))
-    with pytest.raises(NotImplementedError):
-        TSession(p, checkpoint_dir="ckpt", device="cpu")
-    with pytest.raises(NotImplementedError):
+    TSession(p, checkpoint_dir=tmp_path, device="cpu").save(0)
+    assert (tmp_path / "journal.bin").exists()
+    assert (tmp_path / "step_000000000000" / "manifest.json").exists()
+    with pytest.raises(ValueError, match="checkpoint_dir"):
         TSession(p, journal=True, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="_reference"):
         TSession(p, strategy="local_reference", device="cpu")
     for strategy in ("local", "rwalk"):
         assert TSession(p, strategy=strategy, device="cpu").consolidate() == 0
