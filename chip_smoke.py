@@ -25,9 +25,11 @@ Phases, each printing one JSON line:
            that keeps their rows cold, also as device time per launch
            replayed from a CUDA graph), with the bounds;
   parity   small sessions (GLOBAL, LOCAL, RWALK, MASK with consolidation
-           and a refine pass, an armed session that grows) and a bulk build
-           run on the card and on the CPU must leave byte-equal state and
-           results;
+           and a refine pass, an armed session that grows, LOCAL_REFERENCE
+           and GLOBAL_REFERENCE), a bulk build, the reference engine (equal
+           to the batched engine at W = 1 on each device),
+           consolidate_reference and one BatchedServer step run on the card
+           and on the CPU must leave byte-equal state and results;
   sift1m   the main path: bulk-build a 10^6-vector SIFT-shaped index into
            2^20 slots, stream rounds (2 of the cell's 4 by default, printed
            as ``reduced``) of queries, inserts and GLOBAL deletes
@@ -60,7 +62,19 @@ Phases, each printing one JSON line:
            stream and an explicit merge at the end; no query may return a
            deleted id or a stale score; check_mirrors; recall@10 (fp32 and
            quantized + rerank 64) before and after; save and recover
-           bit-exact; rates, merge seconds and rows, peak memory.
+           bit-exact; rates, merge seconds and rows, peak memory;
+  serve    cell sift1m-serve: a BatchedServer (max_batch 64, max_wait 5 ms,
+           k 10) over a GLOBAL session on the bulk-built 10^6 index, one
+           driver loop (submit what has arrived, then step) over held-out
+           queries: a closed loop of 2,048 requests gives the capacity C,
+           Poisson arrivals at 0.5·C and 0.9·C (2,048 each, times drawn from
+           --seed), a burst at 4·C (1,024) against max_queue 256 and a 1 s
+           deadline (every admitted request served within the deadline plus
+           one step), the readiness gate; requests/s, p50/p99/max latency,
+           batch fill, shed counts, recall@10 of the served answers, no
+           served id non-alive; then ``python -m repro_torch.launch.serve``
+           at --scale 10000 (printed as ``reduced``) plain, --tiered and
+           checkpointed in parallel, and --recover from the checkpoints.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -698,6 +712,87 @@ def run_parity_maint(device: str) -> dict:
     return out
 
 
+def run_parity_reference(device: str) -> dict:
+    """The sequential oracles and the serving front end: a
+    ``local_reference`` and a ``global_reference`` session stream, the
+    reference engine against the batched engine at W = 1 (filtered and raw,
+    with MASK tombstones; equal on this device), ``consolidate_reference``
+    on a MASK index and one ``BatchedServer`` step."""
+    import numpy as np
+
+    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session
+    from repro_torch.core import prng, search
+    from repro_torch.core.consolidate import consolidate_reference
+    from repro_torch.core.graph import graph_state_to_numpy
+    from repro_torch.core.maintenance import IPGMIndex
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    def params(strategy):
+        return IndexParams(
+            capacity=1024, dim=32, d_out=8,
+            search=SearchParams(pool_size=16, max_steps=48, num_starts=2),
+            maintenance=MaintenanceParams(strategy=strategy, insert_chunk=64,
+                                          delete_chunk=64))
+
+    def rows(rng, n):
+        return rng.integers(-4, 5, (n, 32)).astype(np.float32)
+
+    out = {}
+    for i, strategy in enumerate(("local_reference", "global_reference")):
+        rng = np.random.default_rng(20 + i)
+        s = Session(params(strategy), seed=i, device=device)
+        res = {"ins0": s.insert(rows(rng, 384)).result()}
+        alive = set(res["ins0"].tolist())
+        for rnd in range(2):
+            res[f"q{rnd}"] = s.query(rows(rng, 64), k=10).result()
+            ins = s.insert(rows(rng, 64)).result()
+            res[f"ins{rnd + 1}"] = ins
+            alive |= set(ins[ins >= 0].tolist())
+            dels = rng.choice(sorted(alive), 64, replace=False).astype(np.int32)
+            s.delete(dels)
+            alive -= set(dels.tolist())
+            s.flush()
+        res["state"] = graph_state_to_numpy(s.state)
+        out[strategy] = res
+
+    # the reference engine against the batched one at W = 1, tombstones in
+    # (on a copy: on the CPU the state arrays above share the tensors' memory)
+    st = _clone_state(s.state)
+    st.alive[: st.capacity // 8] = False
+    st.size.fill_(int(st.alive.sum()))
+    sp = params("mask").search
+    Q = rows(np.random.default_rng(30), 48)
+    eng = {}
+    for raw in (False, True):
+        tag = "raw" if raw else "alive"
+        ref = (search.search_batch_reference_raw if raw else
+               search.search_batch_reference)(st, Q, prng.prng_key(5), sp)
+        bat = (search.search_batch_raw if raw else search.search_batch)(
+            st, Q, prng.prng_key(5), sp)
+        for name in ("ids", "scores", "n_expanded"):
+            check(bool(getattr(ref, name).eq(getattr(bat, name)).all()),
+                  f"parity: reference engine differs from the batched one "
+                  f"in {tag} {name} on {device}")
+        eng[tag] = tuple(x.cpu().numpy() for x in ref)
+    out["engine"] = eng
+
+    rng = np.random.default_rng(31)
+    idx = IPGMIndex(params("mask"), seed=3, device=device)
+    ids = idx.insert(rows(rng, 320))
+    idx.delete(rng.choice(ids, 80, replace=False))
+    n = consolidate_reference(idx, strategy="global")
+    check(n == 80 and idx.strategy == "mask",
+          f"parity: consolidate_reference removed {n} of 80 tombstones")
+    out["consolidate_reference"] = graph_state_to_numpy(idx.state)
+
+    srv = BatchedServer(idx, ServeConfig(max_batch=32, k=10, max_wait_s=0.0))
+    rids = [srv.submit(q) for q in rows(rng, 20)]
+    served = srv.step()
+    out["server_step"] = (np.stack([served[r][0] for r in rids]),
+                          np.stack([served[r][1] for r in rids]))
+    return out
+
+
 def _flatten(obj, prefix=""):
     if isinstance(obj, dict):
         for k, v in obj.items():
@@ -714,11 +809,13 @@ def phase_parity() -> dict:
     t0 = time.perf_counter()
     gpu = dict(_flatten({"session": run_parity_session("cuda"),
                          "build": run_parity_build("cuda"),
-                         "maint": run_parity_maint("cuda")}))
+                         "maint": run_parity_maint("cuda"),
+                         "reference": run_parity_reference("cuda")}))
     t1 = time.perf_counter()
     cpu = dict(_flatten({"session": run_parity_session("cpu"),
                          "build": run_parity_build("cpu"),
-                         "maint": run_parity_maint("cpu")}))
+                         "maint": run_parity_maint("cpu"),
+                         "reference": run_parity_reference("cpu")}))
     t2 = time.perf_counter()
     check(gpu.keys() == cpu.keys(), "parity: result keys differ")
     bad = [k for k in gpu if not np.array_equal(gpu[k], cpu[k])]
@@ -1506,10 +1603,290 @@ def phase_tiered(torch, n_base: int, per_round: int, rounds: int = 2,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving front end: cell sift1m-serve
+# ---------------------------------------------------------------------------
+
+SERVE_CFG = dict(max_batch=64, max_wait_s=0.005, k=10)
+SERVE_CLI_SCALE = 10_000        # the CLI builds its base by Session.insert
+
+
+def drive_server(srv, Q, arrivals) -> dict:
+    """One loop over a request schedule (seconds from the start): submit
+    every request whose arrival time has passed, then ``step()``; sleep
+    only while nothing is queued. A request's latency runs from its
+    scheduled arrival (and, for the deadline check, from its admission) to
+    the return of the step that served it."""
+    import numpy as np
+
+    from repro_torch.core.graph import NULL
+    from repro_torch.serving import ServerOverloadError
+
+    n = len(arrivals)
+    lat = np.full(n, np.nan)
+    lat_admitted = np.full(n, np.nan)
+    ids = np.full((n, srv.cfg.k), NULL, np.int32)
+    admitted: dict[int, tuple[int, float]] = {}     # rid → (request, t)
+    open_rids: set[int] = set()
+    step_s = []
+    nxt = 0
+    t0 = time.perf_counter()
+    while True:
+        now = time.perf_counter() - t0
+        while nxt < n and arrivals[nxt] <= now:
+            try:
+                rid = srv.submit(Q[nxt])
+                admitted[rid] = (nxt, time.perf_counter() - t0)
+                open_rids.add(rid)
+            except ServerOverloadError:
+                pass
+            nxt += 1
+        open_rids -= srv.failed.keys()
+        if not open_rids:
+            if nxt == n:
+                break
+            time.sleep(max(0.0, arrivals[nxt] - (time.perf_counter() - t0)))
+            continue
+        ts = time.perf_counter()
+        served = srv.step()
+        te = time.perf_counter()
+        step_s.append(te - ts)
+        for rid, (got, _) in served.items():
+            i, t_adm = admitted[rid]
+            lat[i] = te - t0 - arrivals[i]
+            lat_admitted[i] = te - t0 - t_adm
+            ids[i] = got
+            open_rids.discard(rid)
+    return dict(wall_s=time.perf_counter() - t0, lat=lat,
+                lat_admitted=lat_admitted, ids=ids, step_s=np.array(step_s))
+
+
+def serve_report(torch, srv, run: dict, true_ids, alive) -> dict:
+    """Requests/s, latency percentiles, batch fill, shed counts and the
+    served answers' recall@10; no served id may be non-alive."""
+    import numpy as np
+
+    from repro_torch.core import metrics
+    from repro_torch.core.graph import NULL
+    done = ~np.isnan(run["lat"])
+    ids = run["ids"][done]
+    rep = ids[ids != NULL]
+    check(bool(alive[rep].all()), "serve: a served id is not alive")
+    ms = run["lat"][done] * 1e3
+    st = srv.stats
+    found = torch.as_tensor(ids).to(true_ids.device)
+    return {
+        "requests": len(run["lat"]), "served": int(done.sum()),
+        "requests_per_s": float(done.sum() / run["wall_s"]),
+        "wall_s": run["wall_s"],
+        "p50_ms": float(np.percentile(ms, 50)),
+        "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max()),
+        "batches": st["batches"],
+        "mean_batch_fill": 1.0 - st["pad_waste"] / max(st["batches"], 1),
+        "step_ms_median": float(np.median(run["step_s"]) * 1e3),
+        "step_ms_max": float(run["step_s"].max() * 1e3),
+        "shed_overload": st["shed_overload"],
+        "shed_deadline": st["shed_deadline"],
+        "recall10": float(metrics.recall_at_k(
+            found, true_ids[torch.as_tensor(done, device=true_ids.device)], 10)),
+    }
+
+
+def run_serve_cli(scale: int, steps: int, root: Path, device: str) -> dict:
+    """``python -m repro_torch.launch.serve`` as subprocesses: plain,
+    ``--tiered`` and checkpointed (every step) in parallel, then
+    ``--recover`` from the checkpointed run's directory."""
+    import os
+    import re
+
+    # three processes share the host's cores: cap each one's CPU threads
+    threads = str(max(1, (os.cpu_count() or 3) // 3))
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": threads}
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--scale",
+            str(scale), "--steps", str(steps), "--device", device]
+    ckpt = ["--checkpoint-dir", str(root / "ckpt")]
+    modes = {"plain": [], "tiered": ["--tiered"],
+             "checkpointed": ckpt + ["--checkpoint-every", "1"]}
+
+    def start(extra):
+        return subprocess.Popen(base + extra, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+
+    def finish(name, proc, t0, out):
+        text, _ = proc.communicate(timeout=600)
+        recalls = [float(r) for r in re.findall(r"recall@10=([0-9.]+)", text)]
+        out[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                     "recall10_per_step": recalls}
+        check(proc.returncode == 0,
+              f"serve CLI {name} exited {proc.returncode}: {text[-2000:]}")
+        check(len(recalls) == steps, f"serve CLI {name}: {len(recalls)} steps")
+        return text
+
+    out = {"scale": scale, "steps": steps}
+    t0 = time.perf_counter()
+    procs = {name: start(extra) for name, extra in modes.items()}
+    try:
+        for name, proc in procs.items():
+            finish(name, proc, t0, out)
+        t1 = time.perf_counter()
+        text = finish("recover", start(ckpt + ["--recover"]), t1, out)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    found = re.search(r"recovered from .*: step=(\d+)", text)
+    out["recover"]["recovered_step"] = int(found.group(1)) if found else None
+    check(out["recover"]["recovered_step"] == steps - 1,
+          f"serve CLI recover: recovered step {out['recover']['recovered_step']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pad_lane_cost(torch, params, state, Q, n_real: int, reps: int = 3
+                  ) -> dict:
+    """What a partly filled step pays for its padding. The server pads a
+    step to ``max_batch`` with zero rows, which the engine walks like any
+    query; the session's own padding (the same op shape) makes invalid
+    lanes, which draw no entry points and never walk. Both from fresh
+    sessions with the same seed, so the real rows' answers must be equal;
+    median op seconds of each, and the mean hop count of real and zero
+    lanes."""
+    import numpy as np
+
+    from repro_torch.core import Session, prng, search
+    B, k = SERVE_CFG["max_batch"], SERVE_CFG["k"]
+    padded = np.zeros((B, Q.shape[1]), np.float32)
+    padded[:n_real] = Q[:n_real]
+    times = {"zero_rows": [], "invalid_lanes": []}
+    for r in range(reps):
+        answers = []
+        for name, rows in (("zero_rows", padded), ("invalid_lanes",
+                                                   Q[:n_real])):
+            sess = Session(params, state=state, seed=r)
+            sync()
+            t = time.perf_counter()
+            ids, scores = sess.query(rows, k=k, chunk=B).result()
+            times[name].append(time.perf_counter() - t)
+            answers.append((ids[:n_real], scores[:n_real]))
+        check(all(np.array_equal(a, b) for a, b in zip(*answers)),
+              "serve: padding changed the real rows' answers")
+    res = search.search_batch(state, padded, prng.prng_key(0), params.search)
+    hops = res.n_expanded.cpu().numpy()
+    return {"n_real": n_real, "max_batch": B,
+            "op_s_zero_rows": float(np.median(times["zero_rows"])),
+            "op_s_invalid_lanes": float(np.median(times["invalid_lanes"])),
+            "hops_real_mean": float(hops[:n_real].mean()),
+            "hops_zero_mean": float(hops[n_real:].mean())}
+
+
+def phase_serve(torch, n_base: int, n_closed: int = 2048, n_open: int = 2048,
+                n_burst: int = 1024, seed: int = 0, device: str = "cuda",
+                cli_scale: int = SERVE_CLI_SCALE, cli_steps: int = 2) -> dict:
+    """Cell sift1m-serve: a ``BatchedServer`` (max_batch 64, max_wait 5 ms,
+    k 10) over a GLOBAL session on the bulk-built 10^6 index, fed held-out
+    queries by :func:`drive_server`: a closed loop (every request queued at
+    once) gives the capacity C; Poisson arrivals at 0.5·C and 0.9·C; a
+    burst at 4·C against max_queue 256 and a 1 s deadline; the readiness
+    gate; then the ``serve_online`` CLI in its three modes."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import Session
+    from repro_torch.core.rebuild import bulk_knn_build
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import BatchedServer, ServeConfig, ServerNotReadyError
+
+    n_q = n_closed + 2 * n_open + n_burst
+    base = make_dataset("sift", n_base, seed=0)
+    Q = make_dataset("sift", n_q, seed=3)       # held out: not in the base
+    capacity = sift_capacity(n_base, 0)
+    params = sift_params(capacity, strategy="global")
+    rng = np.random.default_rng(seed)
+    out = {"n_base": n_base, "capacity": capacity, "config": SERVE_CFG,
+           "seed": seed}
+    t_phase = time.perf_counter()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()                       # the serve path starts here
+    t = time.perf_counter()
+    state = bulk_knn_build(base, np.ones(n_base, bool), params, k_nn=64,
+                           device=device)
+    sync()
+    out["build_s"] = time.perf_counter() - t
+    sess = Session(params, state=state, strategy="global", seed=seed)
+    alive = sess.state.alive.cpu().numpy()
+    _, true_ids = sess.ground_truth(Q, 10)
+
+    def serve(name, lo, n, arrivals, **cfg):
+        srv = BatchedServer(sess, ServeConfig(**{**SERVE_CFG, **cfg}))
+        run = drive_server(srv, Q[lo:lo + n], arrivals)
+        rep = serve_report(torch, srv, run, true_ids[lo:lo + n], alive)
+        out[name] = rep
+        return srv, run, rep
+
+    # warm-up: one full op, so no run pays for first-call costs
+    sess.query(Q[:SERVE_CFG["max_batch"]], k=10, chunk=SERVE_CFG["max_batch"]
+               ).result()
+    _, _, closed = serve("closed", 0, n_closed, np.zeros(n_closed))
+    cap = closed["requests_per_s"]
+    out["capacity_C"] = cap
+    lo = n_closed
+    for frac in (0.5, 0.9):
+        arrivals = np.cumsum(rng.exponential(1.0 / (frac * cap), n_open))
+        serve(f"open_{frac}C", lo, n_open, arrivals)
+        lo += n_open
+    deadline = 1.0
+    arrivals = np.cumsum(rng.exponential(1.0 / (4 * cap), n_burst))
+    _, run, rep = serve("overload_4C", lo, n_burst, arrivals, max_queue=256,
+                        deadline_s=deadline)
+    bound = deadline + run["step_s"].max()
+    worst = float(np.nanmax(run["lat_admitted"]))
+    check(worst <= bound, f"serve: an admitted request waited {worst:.3f} s, "
+          f"more than the deadline plus one step ({bound:.3f} s)")
+    check(rep["served"] + rep["shed_overload"] + rep["shed_deadline"]
+          == n_burst, "serve: overload requests neither served nor shed")
+    rep["max_admitted_latency_ms"] = worst * 1e3
+
+    # readiness: a recovering session holds traffic, then serves again
+    srv = BatchedServer(sess, ServeConfig(**SERVE_CFG))
+    sess.recovering = True
+    try:
+        srv.submit(Q[0])
+        refused = False
+    except ServerNotReadyError:
+        refused = True
+    sess.recovering = False
+    srv.submit(Q[0])
+    check(refused and len(srv.step()) == 1,
+          "serve: the readiness gate did not hold and release traffic")
+    out["readiness_gate"] = "held while recovering, served after"
+    sync()
+    out["launches"] = dict(kops.launches)       # the serve path ends here
+    out["gather_launches_by_shape"] = gather_shape_split(kops)
+    out["peak_mem_gib"] = peak_gib(torch)
+    out["pad_lanes"] = pad_lane_cost(torch, params, sess.state, Q,
+                                     SERVE_CFG["max_batch"] // 2)
+    del sess, state
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    root = scratch_dir("serve-")
+    try:
+        out["cli"] = run_serve_cli(cli_scale, cli_steps, root, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,parity,sift1m,maint,durable,tiered")
+                    default="build,kernels,parity,sift1m,maint,durable,tiered,serve")
     ap.add_argument("--n-base", type=int, default=1_000_000)
     # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
     # near half its time limit (PERF.md §4)
@@ -1517,6 +1894,8 @@ def main(argv=None) -> int:
     ap.add_argument("--per-round", type=int, default=2048)
     ap.add_argument("--maint-steps", type=int, default=2)
     ap.add_argument("--maint-queries", type=int, default=1000)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serve phase's arrival times")
     # the durable phase's child process (started by the phase itself)
     ap.add_argument("--durable-child", help=argparse.SUPPRESS)
     ap.add_argument("--child-capacity", type=int, help=argparse.SUPPRESS)
@@ -1551,7 +1930,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift, maint, durable, tiered = {}, {}, {}, {}
+    sift, maint, durable, tiered, serve = {}, {}, {}, {}, {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -1600,6 +1979,25 @@ def main(argv=None) -> int:
             emit({"phase": "tiered", "card": smi, **tiered})
             for name, n in tiered["launches"].items():
                 check(n > 0, f"kernel {name} was not launched on the tiered path")
+            torch.cuda.empty_cache()
+        if "serve" in phases:
+            # --per-round requests per closed and open run, half as many
+            # in the overload burst
+            n_req = args.per_round
+            emit({"reduced": {"serve_cli": {
+                "scale": SERVE_CLI_SCALE, "steps": 2,
+                "of": {"scale": 1_000_000, "steps": 2}}}})
+            if args.n_base != 1_000_000 or n_req != 2048:
+                emit({"reduced": {"serve": {"n_base": args.n_base,
+                                            "requests": n_req,
+                                            "of": {"n_base": 1_000_000,
+                                                   "requests": 2048}}}})
+            serve = phase_serve(torch, args.n_base, n_req, n_req, n_req // 2,
+                                seed=args.seed)
+            emit({"phase": "serve", "card": smi, **serve})
+            for name in ("gather_scores", "score_topk"):
+                check(serve["launches"][name] > 0,
+                      f"kernel {name} was not launched on the serve path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1613,6 +2011,7 @@ def main(argv=None) -> int:
             "launches_maint": maint.get("launches", {}).get(name, 0),
             "launches_durable": durable.get("launches", {}).get(name, 0),
             "launches_tiered": tiered.get("launches", {}).get(name, 0),
+            "launches_serve": serve.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

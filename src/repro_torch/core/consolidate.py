@@ -10,15 +10,17 @@ runs it as the ``OP_CONSOLIDATE`` branch of the op IR (``core/ops.py``),
 auto-triggered by ``MaintenanceParams.consolidate_threshold``.
 
 The host-side drivers keep the JAX package's surface: ``consolidate`` and
-``maybe_consolidate`` take an ``IPGMIndex`` or a ``Session``. The
-revive-then-delete ``consolidate_reference`` oracle is not ported.
+``maybe_consolidate`` take an ``IPGMIndex`` or a ``Session``;
+``consolidate_reference`` is the revive-then-delete oracle, exception-safe.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core import delete as delete_mod
-from repro_torch.core.graph import NULL, GraphState
+from repro_torch.core.graph import DATA_FIELDS, NULL, GraphState
 from repro_torch.core.params import IndexParams
 
 
@@ -69,3 +71,34 @@ def maybe_consolidate(index, *, threshold: float = 0.2,
     if masked_fraction(_session_of(index).state) >= threshold:
         return consolidate(index, strategy=strategy)
     return 0
+
+
+def consolidate_reference(index, *, strategy: str = "global") -> int:
+    """The revive-then-delete pass — the parity oracle. Tombstones are
+    revived (``alive=True``) so the delete strategy's precheck accepts them,
+    then deleted with ``strategy`` through ``index.delete``. If that raises,
+    the index's state and strategy roll back. The delete path updates the
+    state in place, so the rollback snapshot clones every tensor. Returns
+    the number of tombstones removed."""
+    sess = _session_of(index)
+    sess.flush()
+    state = sess.state
+    masked_ids = torch.nonzero(state.masked).flatten().cpu().numpy()
+    if masked_ids.size == 0:
+        return 0
+    snapshot = dataclasses.replace(
+        state, **{f: getattr(state, f).clone() for f in DATA_FIELDS})
+    old_strategy = index.strategy
+    try:
+        alive = state.alive.clone()
+        alive[torch.as_tensor(masked_ids, device=state.device)] = True
+        index.state = dataclasses.replace(
+            state, alive=alive, size=state.size + int(masked_ids.size))
+        index.strategy = strategy
+        index.delete(masked_ids)
+    except BaseException:
+        index.state = snapshot
+        raise
+    finally:
+        index.strategy = old_strategy
+    return int(masked_ids.size)

@@ -20,8 +20,12 @@ batches on the ``score_matrix`` kernel.
 
 The deleted batch is first marked dead but kept present, so the repair
 searches still route through it; edges are scrubbed and slots freed only
-after all repairs are applied. The sequential reference appliers of the JAX
-package (``*_reference``) are not ported.
+after all repairs are applied. The sequential appliers of the JAX package
+are kept as the parity oracle: ``delete_{local,global,rwalk}_reference``
+share the batched plans and apply them edge by edge through the scalar
+primitives (remove u→x, then add u→z; or ``set_out_edges`` per repaired
+row), so a full reverse row refuses the newcomer instead of truncating by
+rank.
 """
 from __future__ import annotations
 
@@ -33,24 +37,21 @@ from repro_torch.core import prng, search, select
 from repro_torch.core.graph import (
     NULL,
     GraphState,
+    add_edge,
     group_by_destination,
     mask_to_slots,
     pack_rows,
+    remove_edge,
     scrub_edges_to,
+    set_out_edges,
     set_out_edges_batch,
 )
 from repro_torch.core.params import IndexParams
 from repro_torch.core.stable import argmax_first, scatter_max_, scatter_min_, top_k
 
 STRATEGIES = ("pure", "mask", "local", "global", "rwalk")
-UNPORTED_STRATEGIES = ("local_reference", "global_reference",
-                       "rwalk_reference")
-
-
-def unported_message(strategy: str) -> str:
-    return (f"delete strategy {strategy!r} is not ported to repro_torch: the "
-            f"sequential *_reference strategies {UNPORTED_STRATEGIES} are "
-            "the part of the JAX package's delete module that stays unported")
+REFERENCE_STRATEGIES = ("local_reference", "global_reference",
+                        "rwalk_reference")
 
 
 def _dead_mask(state: GraphState, ids: torch.Tensor, valid: torch.Tensor
@@ -281,16 +282,76 @@ delete_local = _repairing("local")
 delete_global = _repairing("global")
 delete_rwalk = _repairing("rwalk")
 
+
+# ---------------------------------------------------------------------------
+# Sequential reference appliers — the parity oracle. Do not optimize.
+# ---------------------------------------------------------------------------
+
+def _splice_apply_reference(state: GraphState, u_flat: torch.Tensor,
+                            x_flat: torch.Tensor, z_flat: torch.Tensor,
+                            u_valid: torch.Tensor) -> GraphState:
+    """Lane by lane: remove (u → x) first, which frees the row slot, then
+    add (u → z) — in place."""
+    lanes = zip(u_flat[u_valid].tolist(), x_flat[u_valid].tolist(),
+                z_flat[u_valid].tolist())
+    for u, x, z in lanes:
+        remove_edge(state, u, x)
+        if z != NULL:
+            add_edge(state, u, z)
+    return state
+
+
+def _splice_delete_reference(state, ids, valid, plan) -> GraphState:
+    """Mark, plan with ``plan(state, ids, valid, dead)``, splice lane by
+    lane, free."""
+    valid = _precheck(state, ids, valid)
+    _mark_dead(state, ids, valid)
+    dead = _dead_mask(state, ids, valid)
+    u_flat, z_flat, u_valid = plan(state, ids, valid, dead)
+    # the deleted vertex of every (u, x) lane
+    x_flat = torch.where(valid, ids, 0).repeat_interleave(state.d_in)
+    _splice_apply_reference(state, u_flat, x_flat, z_flat, u_valid)
+    return _finalize_removal(state, ids, valid)
+
+
+def delete_local_reference(state, ids, valid, key,
+                           params: IndexParams) -> GraphState:
+    """LOCAL's plan applied lane by lane (parity oracle)."""
+    return _splice_delete_reference(state, ids, valid, _local_repair_plan)
+
+
+def delete_rwalk_reference(state, ids, valid, key,
+                           params: IndexParams) -> GraphState:
+    """RWALK's plan applied lane by lane (parity oracle)."""
+    return _splice_delete_reference(
+        state, ids, valid,
+        lambda st, i, v, dead: _rwalk_repair_plan(st, i, v, dead, key, params))
+
+
+def delete_global_reference(state, ids, valid, key,
+                            params: IndexParams) -> GraphState:
+    """GLOBAL's plan applied row by row through ``set_out_edges``."""
+    valid = _precheck(state, ids, valid)
+    _mark_dead(state, ids, valid)
+    dead = _dead_mask(state, ids, valid)
+    u_flat, u_valid, new_nbrs = _global_repair_plan(state, ids, valid, dead,
+                                                    key, params)
+    for i in torch.nonzero(u_valid).flatten().tolist():
+        set_out_edges(state, int(u_flat[i]), new_nbrs[i])
+    return _finalize_removal(state, ids, valid)
+
+
 _STRATEGY_FNS = {"pure": delete_pure, "mask": delete_mask,
                  "local": delete_local, "global": delete_global,
-                 "rwalk": delete_rwalk}
+                 "rwalk": delete_rwalk,
+                 "local_reference": delete_local_reference,
+                 "global_reference": delete_global_reference,
+                 "rwalk_reference": delete_rwalk_reference}
 
 
 def delete_batch(state: GraphState, ids, valid, key: torch.Tensor,
                  strategy: str, params: IndexParams) -> GraphState:
     """Delete the valid lanes of ``ids`` with ``strategy`` — in place."""
-    if strategy in UNPORTED_STRATEGIES:
-        raise NotImplementedError(unported_message(strategy))
     dev = state.device
     ids = torch.as_tensor(ids, dtype=torch.int32).to(dev)
     valid = torch.as_tensor(valid, dtype=torch.bool).to(dev)

@@ -40,8 +40,12 @@ def pair_score(x: torch.Tensor, q: torch.Tensor, metric: str) -> torch.Tensor:
 
 def scores_vs_rows(rows: torch.Tensor, row_sqnorms: torch.Tensor,
                    q: torch.Tensor, metric: str) -> torch.Tensor:
-    """Scores of one query against n gathered rows."""
-    dot = rows.float() @ q.float()
+    """Scores of one query ``q [d]`` against n gathered rows ``[n, d]``, or
+    of each query ``q [B, d]`` against its own rows ``[B, n, d]``."""
+    if rows.dim() == 3:
+        dot = torch.bmm(rows.float(), q.float()[:, :, None])[..., 0]
+    else:
+        dot = rows.float() @ q.float()
     if metric == "l2":
         return 2.0 * dot - row_sqnorms
     return dot

@@ -168,6 +168,88 @@ def next_capacity_tier(capacity: int, needed: int, growth_factor: float,
 
 
 # ---------------------------------------------------------------------------
+# Scalar edge surgery — the sequential reference paths' primitives. Rows may
+# hold NULL holes anywhere; every consumer masks on ``entry != NULL``. The
+# mutators work in place, and ``u``/``v`` may be ints or 0-d tensors.
+# ---------------------------------------------------------------------------
+
+def row_insert(row: torch.Tensor, value) -> tuple[torch.Tensor, torch.Tensor]:
+    """``value`` written into the first NULL hole of ``row``: (new_row,
+    inserted?). Refuses when the row is full; a value already in the row
+    counts as inserted and leaves the row as it is."""
+    already = torch.any(row == value)
+    holes = row == NULL
+    do = torch.any(holes) & ~already
+    pos = argmax_first(holes, 0)
+    at = torch.arange(row.shape[0], device=row.device) == pos
+    return torch.where(do & at, value, row).to(row.dtype), do | already
+
+
+def row_remove(row: torch.Tensor, value) -> torch.Tensor:
+    """Every occurrence of ``value`` in ``row`` → NULL."""
+    return torch.where(row == value, NULL, row)
+
+
+def add_edge(state: GraphState, u, v) -> GraphState:
+    """Add u→v and its reverse entry, or neither (I1): refused when either
+    row is full, on a self edge or on a NULL end — in place."""
+    new_adj_row, ok_a = row_insert(state.adj[u], v)
+    new_radj_row, ok_r = row_insert(state.radj[v], u)
+    ok = ok_a & ok_r & (u != v) & (u != NULL) & (v != NULL)
+    state.adj[u] = torch.where(ok, new_adj_row, state.adj[u])
+    state.radj[v] = torch.where(ok, new_radj_row, state.radj[v])
+    return state
+
+
+def remove_edge(state: GraphState, u, v) -> GraphState:
+    """Drop u→v and its reverse entry — in place."""
+    state.adj[u] = row_remove(state.adj[u], v)
+    state.radj[v] = row_remove(state.radj[v], u)
+    return state
+
+
+def set_out_edges(state: GraphState, u, targets: torch.Tensor) -> GraphState:
+    """Replace u's out-row by ``targets`` (NULL padded): remove every old
+    edge, then ``add_edge`` each target in order, so a target whose reverse
+    row is full is refused (I1). ``touch`` is left as it is — in place."""
+    for i in range(state.d_out):
+        old = int(state.adj[u, i])
+        if old != NULL:
+            remove_edge(state, u, old)
+    for tgt in targets[: state.d_out].tolist():
+        if tgt != NULL:
+            add_edge(state, u, tgt)
+    return state
+
+
+def rebuild_radj_rows(state: GraphState, touched: torch.Tensor) -> GraphState:
+    """Recompute ``radj[v]`` from ``adj`` for every v in ``touched`` — in
+    place. Each row keeps its first ``d_in`` in-edges in flat ``adj`` order
+    ((source id, slot) order); in-edges ranked ``d_in`` or above are dropped
+    from ``adj`` too, so I1 holds exactly. Untouched rows are unchanged."""
+    cap, d_out, d_in = state.capacity, state.d_out, state.d_in
+    dev = state.device
+    src = torch.arange(cap, device=dev).repeat_interleave(d_out)
+    dst = state.adj.reshape(-1).long()
+    ok = (dst != NULL) & touched[dst.clamp(min=0)]
+    order, rank_sorted = _segment_rank(torch.where(ok, dst, cap))
+    rank = torch.empty_like(rank_sorted)
+    rank[order] = rank_sorted
+    keep = ok & (rank < d_in)
+    rows = torch.full((cap, d_in), NULL, dtype=torch.int32, device=dev)
+    rows[dst[keep], rank[keep]] = src[keep].to(torch.int32)
+    state.radj[touched] = rows[touched]
+    state.adj.masked_fill_((ok & (rank >= d_in)).reshape(cap, d_out), NULL)
+    return state
+
+
+def next_free_slot(state: GraphState) -> torch.Tensor:
+    """The first non-present slot; 0 on a full graph (the caller checks
+    ``~present[slot]``)."""
+    return argmax_first(~state.present, 0)
+
+
+# ---------------------------------------------------------------------------
 # Bulk edge primitives — rows are computed whole, scattered once, and the
 # reverse rows are patched from the forward change.
 # ---------------------------------------------------------------------------

@@ -6,17 +6,27 @@ vertices, select each new row's neighbours over its pool plus the batch's
 own slots, then apply forward rows and back-links (NSW/HNSW bidirectional
 practice) in one ``set_out_edges_batch`` call. The state is updated in
 place where JAX donates it.
+
+The sequential path of the JAX package is kept as the parity oracle:
+``insert_one`` (search → select → connect, one vertex, back-links through
+the scalar edge primitives, shrinking a full row by SELECT-NEIGHBORS) and
+``insert_batch_reference``, which inserts a batch one row at a time so row
+i + 1 may link to row i.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import distances, quantize, search, select
+from repro_torch.core import prng
 from repro_torch.core.graph import (
     NULL,
     GraphState,
+    add_edge,
     group_by_destination,
+    next_free_slot,
     pack_rows,
+    set_out_edges,
     set_out_edges_batch,
 )
 from repro_torch.core.params import IndexParams
@@ -121,3 +131,85 @@ def insert_batch(state: GraphState, vecs, valid, key: torch.Tensor,
     vecs = torch.as_tensor(vecs, dtype=torch.float32)
     valid = torch.as_tensor(valid, dtype=torch.bool)
     return insert_batch_impl(state, vecs, valid, key, params)
+
+
+# ---------------------------------------------------------------------------
+# Reference sequential path — the parity oracle. Do not optimize.
+# ---------------------------------------------------------------------------
+
+def _connect_backward(state: GraphState, z: int, new_id: int) -> GraphState:
+    """Add z→new, shrinking z's row by SELECT-NEIGHBORS over (row ∪ new)
+    when it is full; existing neighbours stay eligible even if masked — in
+    place."""
+    if not bool(torch.any(state.adj[z] == NULL)):
+        cands = torch.cat([state.adj[z], state.adj.new_tensor([new_id])])
+        picked = select.select_from_pool(
+            state, state.vectors[z][None], cands[None], state.d_out,
+            exclude=state.adj.new_tensor([[z]]), require_alive=False)[0]
+        return set_out_edges(state, z, picked)
+    return add_edge(state, z, new_id)
+
+
+def insert_one(state: GraphState, vec: torch.Tensor, key: torch.Tensor,
+               params: IndexParams) -> tuple[GraphState, torch.Tensor]:
+    """Insert one vector ``vec [dim]`` into the lowest free slot — in place.
+    Returns (state, new_id), new_id NULL when the graph is full. The
+    ef-search is the batched engine at B = 1."""
+    dev = state.device
+    vec = vec.to(dev, torch.float32)
+    sp = params.eff_insert_search
+    slot = int(next_free_slot(state))
+    ok = not bool(state.present[slot])
+
+    starts = search.entry_points(state, key, sp.num_starts)
+    res = search.beam_search(state, vec[None], starts[None], sp)
+    nbrs = select.select_from_pool(
+        state, vec[None], res.ids, params.d_out,
+        exclude=torch.tensor([[slot]], dtype=torch.int32, device=dev))[0]
+    if not ok:
+        return state, torch.tensor(NULL, dtype=torch.int32, device=dev)
+
+    # as a one-row batch, so the bytes are the batched path's
+    vec_cast = vec[None]
+    if params.metric == "cos":
+        vec_cast = distances.normalize(vec_cast)
+    code_row, code_scale = quantize.quantize_rows(vec_cast)
+    state.vectors[slot] = vec_cast[0]
+    state.sqnorms[slot] = distances.sqnorm(vec_cast)[0]
+    state.codes[slot] = code_row[0]
+    state.scales[slot] = code_scale[0]
+    state.alive[slot] = True
+    state.present[slot] = True
+    state.stamps[slot] = state.clock
+    state.size += 1
+    state.clock += 1
+
+    set_out_edges(state, slot, nbrs)
+    if params.bidirectional_insert:
+        for z in nbrs[: params.d_out].tolist():
+            if z != NULL:
+                _connect_backward(state, z, slot)
+    return state, torch.tensor(slot, dtype=torch.int32, device=dev)
+
+
+def insert_batch_reference_impl(state: GraphState, vecs: torch.Tensor,
+                                valid: torch.Tensor, key: torch.Tensor,
+                                params: IndexParams
+                                ) -> tuple[GraphState, torch.Tensor]:
+    """Sequential insertion of the valid rows of ``vecs [B, dim]`` (row i
+    draws with ``fold_in(key, i)``) — in place. Returns (state, ids i32[B])."""
+    dev = state.device
+    ids = torch.full((vecs.shape[0],), NULL, dtype=torch.int32, device=dev)
+    for i, v in enumerate(torch.as_tensor(valid).tolist()):
+        if v:
+            _, ids[i] = insert_one(state, vecs[i], prng.fold_in(key, i),
+                                   params)
+    return state, ids
+
+
+def insert_batch_reference(state: GraphState, vecs, valid, key: torch.Tensor,
+                           params: IndexParams
+                           ) -> tuple[GraphState, torch.Tensor]:
+    vecs = torch.as_tensor(vecs, dtype=torch.float32)
+    valid = torch.as_tensor(valid, dtype=torch.bool)
+    return insert_batch_reference_impl(state, vecs, valid, key, params)

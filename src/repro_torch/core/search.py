@@ -13,6 +13,13 @@ past ``max_steps``; a trip after every pool has drained changes nothing (its
 lanes are NULL/-inf and sort after the pools' own -inf padding), so testing
 late gives the same pools and hop counts.
 
+``search_one``/``search_one_raw`` are B = 1 views of the batched engine.
+The per-query reference engine of the JAX package (``*_reference``, one
+node expanded per trip, a visited bitmap) is kept as the slow-path oracle
+the parity tests pin the batched engine against. JAX vmaps it over
+queries; here it runs batched, with a ``[B, capacity]`` bitmap and a mask
+of the queries still walking, so each query stops on its own.
+
 Entry points: lane ``i`` draws ``fold_in(key, offset + i)`` and takes the
 ``num_starts`` present slots with the largest Gumbel draw. Gumbel is a
 monotone function of the uniform draw, so the port ranks the uniform
@@ -25,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import distances, prng
 from repro_torch.core.graph import NULL, GraphState
 from repro_torch.core.params import SearchParams
 from repro_torch.core.stable import argmax_first, top_k
@@ -212,3 +219,162 @@ def search_batch_raw(state: GraphState, queries, key: torch.Tensor,
     q = torch.as_tensor(queries, dtype=torch.float32).to(state.device)
     starts = batch_entry_points(state, key, q.shape[0], params.num_starts)
     return beam_search(state, q, starts, params, raw=True)
+
+
+def search_one(state: GraphState, q: torch.Tensor, start_ids: torch.Tensor,
+               params: SearchParams) -> SearchResult:
+    """Single-query view of the batched engine (B = 1)."""
+    res = beam_search(state, q[None], start_ids[None], params)
+    return SearchResult(res.ids[0], res.scores[0], res.n_expanded[0])
+
+
+def search_one_raw(state: GraphState, q: torch.Tensor,
+                   start_ids: torch.Tensor, params: SearchParams
+                   ) -> SearchResult:
+    res = beam_search(state, q[None], start_ids[None], params, raw=True)
+    return SearchResult(res.ids[0], res.scores[0], res.n_expanded[0])
+
+
+# ---------------------------------------------------------------------------
+# Reference engine — the pre-refactor best-first walk of the JAX package,
+# kept as the slow-path oracle of the parity tests. Do not optimize: it
+# synchronises with the host on every trip.
+# ---------------------------------------------------------------------------
+
+class _LoopState(NamedTuple):
+    pool_ids: torch.Tensor       # i32[B, k]
+    pool_scores: torch.Tensor    # f32[B, k]
+    pool_expanded: torch.Tensor  # bool[B, k]
+    bitmap: torch.Tensor         # bool[B, capacity] — pushed at least once
+    steps: torch.Tensor          # i32[B]
+
+
+def _merge_pool_ref(pool: _LoopState, new_ids: torch.Tensor,
+                    new_scores: torch.Tensor, k: int) -> _LoopState:
+    ids, scores, exp = _merge_pools(pool.pool_ids, pool.pool_scores,
+                                    pool.pool_expanded, new_ids, new_scores, k)
+    return pool._replace(pool_ids=ids, pool_scores=scores, pool_expanded=exp)
+
+
+def _score_new(state: GraphState, q: torch.Tensor, ids: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """Each query ``q [B, d]`` against its gathered rows ``ids [B, n]``,
+    plain (no kernel); invalid lanes → -inf."""
+    safe = torch.where(valid, ids, 0).long()
+    s = distances.scores_vs_rows(state.vectors[safe], state.sqnorms[safe], q,
+                                 state.metric)
+    return torch.where(valid, s, NEG_INF)
+
+
+def _mark(bitmap: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor
+          ) -> None:
+    """``bitmap[b, ids[b, j]] = True`` for every valid lane — in place."""
+    rows, cols = torch.nonzero(valid, as_tuple=True)
+    bitmap[rows, ids[rows, cols].long()] = True
+
+
+def _run_loop(state: GraphState, q: torch.Tensor, start_ids: torch.Tensor,
+              params: SearchParams) -> _LoopState:
+    """The best-first walk of every query ``q [B, d]`` from its starts
+    ``[B, S]``: each trip expands the first best unexpanded pool entry,
+    pushes its present neighbours not yet in the query's bitmap, and merges
+    them with the stable top-k. A query stops when its frontier is empty or
+    after ``max_steps`` trips; ``steps`` counts its own trips."""
+    dev = state.device
+    q = q.to(dev, torch.float32)
+    start_ids = start_ids.to(dev, torch.int32)
+    B, k = q.shape[0], params.pool_size
+
+    sv = start_ids != NULL
+    sv = sv & state.present[torch.where(sv, start_ids, 0).long()]
+    seed_scores = _score_new(state, q, start_ids, sv)
+    bitmap = torch.zeros((B, state.capacity), dtype=torch.bool, device=dev)
+    _mark(bitmap, start_ids, sv)
+    pool = _LoopState(
+        pool_ids=torch.full((B, k), NULL, dtype=torch.int32, device=dev),
+        pool_scores=torch.full((B, k), NEG_INF, dtype=torch.float32,
+                               device=dev),
+        pool_expanded=torch.zeros((B, k), dtype=torch.bool, device=dev),
+        bitmap=bitmap,
+        steps=torch.zeros((B,), dtype=torch.int32, device=dev))
+    pool = _merge_pool_ref(pool, torch.where(sv, start_ids, NULL),
+                           seed_scores, k)
+
+    rows = torch.arange(B, device=dev)
+    while True:
+        open_ = (pool.pool_ids != NULL) & ~pool.pool_expanded
+        active = torch.any(open_, dim=1) & (pool.steps < params.max_steps)
+        if not bool(active.any()):
+            return pool
+        frontier = torch.where(open_, pool.pool_scores, NEG_INF)
+        # jnp.argmax: the first maximum
+        best = argmax_first(frontier == frontier.max(dim=1, keepdim=True)
+                            .values, 1)
+        cur = pool.pool_ids[rows, best]
+        expanded = pool.pool_expanded.clone()
+        expanded[rows, best] = True        # inactive rows are restored below
+
+        nbrs = state.adj[cur.clamp(min=0).long()]              # [B, d_out]
+        nv = (nbrs != NULL) & active[:, None]
+        safe = torch.where(nv, nbrs, 0).long()
+        nv = nv & state.present[safe] & ~torch.gather(pool.bitmap, 1, safe)
+        nscores = _score_new(state, q, nbrs, nv)
+        _mark(pool.bitmap, nbrs, nv)
+
+        stepped = pool._replace(pool_expanded=expanded,
+                                steps=pool.steps + active.to(torch.int32))
+        stepped = _merge_pool_ref(stepped, torch.where(nv, nbrs, NULL),
+                                  nscores, k)
+        keep = active[:, None]
+        pool = stepped._replace(
+            pool_ids=torch.where(keep, stepped.pool_ids, pool.pool_ids),
+            pool_scores=torch.where(keep, stepped.pool_scores,
+                                    pool.pool_scores),
+            pool_expanded=torch.where(keep, stepped.pool_expanded,
+                                      pool.pool_expanded))
+
+
+def _report_alive(state: GraphState, pool: _LoopState, k: int
+                  ) -> SearchResult:
+    ids = pool.pool_ids
+    ok = (ids != NULL) & state.alive[ids.clamp(min=0).long()]
+    top_scores, idx = top_k(torch.where(ok, pool.pool_scores, NEG_INF), k)
+    rep_ids = torch.where(top_scores > NEG_INF, torch.gather(ids, 1, idx),
+                          NULL)
+    return SearchResult(rep_ids, top_scores, pool.steps)
+
+
+def search_one_reference(state: GraphState, q: torch.Tensor,
+                         start_ids: torch.Tensor, params: SearchParams
+                         ) -> SearchResult:
+    """Single-query reference walk reporting alive slots only."""
+    res = _report_alive(state, _run_loop(state, q[None], start_ids[None],
+                                         params), params.pool_size)
+    return SearchResult(res.ids[0], res.scores[0], res.n_expanded[0])
+
+
+def search_one_reference_raw(state: GraphState, q: torch.Tensor,
+                             start_ids: torch.Tensor, params: SearchParams
+                             ) -> SearchResult:
+    """Unfiltered reference traversal pool (masked slots included)."""
+    pool = _run_loop(state, q[None], start_ids[None], params)
+    return SearchResult(pool.pool_ids[0], pool.pool_scores[0], pool.steps[0])
+
+
+def search_batch_reference(state: GraphState, queries, key: torch.Tensor,
+                           params: SearchParams) -> SearchResult:
+    """The reference walk of every query from ``batch_entry_points``,
+    reporting alive slots only."""
+    q = torch.as_tensor(queries, dtype=torch.float32).to(state.device)
+    starts = batch_entry_points(state, key, q.shape[0], params.num_starts)
+    return _report_alive(state, _run_loop(state, q, starts, params),
+                         params.pool_size)
+
+
+def search_batch_reference_raw(state: GraphState, queries, key: torch.Tensor,
+                               params: SearchParams) -> SearchResult:
+    """Unfiltered reference traversal pools (masked slots included)."""
+    q = torch.as_tensor(queries, dtype=torch.float32).to(state.device)
+    starts = batch_entry_points(state, key, q.shape[0], params.num_starts)
+    pool = _run_loop(state, q, starts, params)
+    return SearchResult(pool.pool_ids, pool.pool_scores, pool.steps)

@@ -223,11 +223,10 @@ class Session:
                  checkpoint_keep: int = 3, journal: bool | None = None,
                  journal_fsync: str = "flush", flush_retries: int = 3,
                  flush_backoff_s: float = 0.005):
+        known = delete_mod.STRATEGIES + delete_mod.REFERENCE_STRATEGIES
         strategy = strategy if strategy is not None else params.maintenance.strategy
-        if strategy in delete_mod.UNPORTED_STRATEGIES:
-            raise NotImplementedError(delete_mod.unported_message(strategy))
-        if strategy not in delete_mod.STRATEGIES:
-            raise ValueError(f"strategy must be one of {delete_mod.STRATEGIES}")
+        if strategy not in known:
+            raise ValueError(f"strategy must be one of {known}")
         if state is not None and device is not None and (
                 torch.device(device).type != state.device.type):
             raise ValueError(f"state lives on {state.device}, not {device}")

@@ -19,6 +19,7 @@ import torch
 from repro.core import IndexParams, MaintenanceParams, SearchParams
 from repro.core import Session as JSession
 from repro.core import ops as jops
+from repro.core.session import params_fingerprint as jfingerprint
 from repro.testing import faults as jfaults
 from repro_torch.checkpoint import journal as tjournal
 from repro_torch.core import Session as TSession
@@ -412,16 +413,35 @@ def test_rejection_replays_identically(tmp_path):
 
 def test_only_reference_strategies_stay_unported(tmp_path):
     """A port session given a checkpoint directory journals, saves and
-    restores; only the sequential reference strategies raise."""
+    restores. Every strategy is ported: each reference strategy's
+    fingerprint equals JAX's (so either package reads the other's
+    checkpoints), and a ``local_reference`` session recovers bit-exactly,
+    replaying its deletes through the sequential applier."""
     sess = _session(tmp_path)
     recs, _, _ = tjournal.scan_file(tmp_path / "journal.bin")
     assert [r.code for r in recs] == [ops_mod.JR_META]
     sess.insert(_vec(0))
     assert sess.save(1).name == "step_000000000001"
     assert sess.restore() == 1
-    for strategy in tdelete.UNPORTED_STRATEGIES:
-        with pytest.raises(NotImplementedError, match="_reference"):
-            TSession(_params(), strategy=strategy, device="cpu")
+    for strategy in tdelete.REFERENCE_STRATEGIES:
+        assert params_fingerprint(_params(), strategy) == (
+            jfingerprint(_jparams(), strategy))
+    p = _params(strategy="local_reference")
+    ref = TSession(p, seed=3, device="cpu", checkpoint_dir=tmp_path / "ref")
+    for t in range(8):
+        ref.insert(_vec(t))
+    ref.save(1)
+    for t in range(8, 12):
+        ref.insert(_vec(t))
+        ref.delete(_del_ids(t))
+    ref.flush()
+    want = _state_summary(ref, probe=False)
+    del ref
+    rec = TSession.recover(tmp_path / "ref", p, seed=3, device="cpu")
+    assert rec.strategy == "local_reference"
+    assert rec.recovery_info["n_replayed"] > 0
+    _assert_bit_identical(_state_summary(rec, probe=False), want,
+                          "local_reference replay")
     index = IPGMIndex(_params(), device="cpu", checkpoint_dir=tmp_path / "ix")
     index.insert(_vec(1))
     recs, _, _ = tjournal.scan_file(tmp_path / "ix" / "journal.bin")

@@ -106,16 +106,27 @@ def test_params_fingerprint_and_dataset_match():
 
 
 def test_session_device_and_unported_features(monkeypatch, tmp_path):
-    """What stays unported raises: the sequential reference strategies. A
-    checkpoint directory arms the journal; a journal needs a directory."""
+    """A ``local_reference`` session runs: the sequential oracle strategy
+    takes the mixed stream to JAX's results and state. A checkpoint
+    directory arms the journal; a journal needs a directory."""
     p = torch_params(_params("global"))
     TSession(p, checkpoint_dir=tmp_path, device="cpu").save(0)
     assert (tmp_path / "journal.bin").exists()
     assert (tmp_path / "step_000000000000" / "manifest.json").exists()
     with pytest.raises(ValueError, match="checkpoint_dir"):
         TSession(p, journal=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="_reference"):
-        TSession(p, strategy="local_reference", device="cpu")
+    jp = _params("local_reference")
+    js = JSession(jp, seed=4)
+    ts = TSession(torch_params(jp), seed=4, device="cpu")
+    want = _drive(js, np.random.default_rng(5))
+    got = _drive(ts, np.random.default_rng(5))
+    for name in ("ins0", "q0", "ins1", "q1", "ins2"):
+        w, g = want[name], got[name]
+        pairs = zip(w, g) if isinstance(w, tuple) else [(w, g)]
+        assert all(np.array_equal(a, b) for a, b in pairs), name
+    js.flush()
+    assert state_diff(js.state, ts.state) == []
+    assert check_health(ts.state) == []
     for strategy in ("local", "rwalk"):
         assert TSession(p, strategy=strategy, device="cpu").consolidate() == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
