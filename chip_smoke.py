@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, at SIFT1M scale
     python3 chip_smoke.py --phases build,kernels,maint
+    python3 chip_smoke.py --phases build,kernels,sharded --n-base 100000
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
@@ -23,13 +24,19 @@ Phases, each printing one JSON line:
            build's 16,384-query block for score_topk, at B = 64 for the
            gathers, whose calls each take the next id set of a rotation
            that keeps their rows cold, also as device time per launch
-           replayed from a CUDA graph), with the bounds;
+           replayed from a CUDA graph), with the bounds; the bf16-row
+           gather on the bf16 cast of every such table, bit-equal to the
+           fp32 kernel on the widened rows and held to its plain version,
+           timed beside the fp32 row at B 64 and 4,096 × C 32;
   parity   small sessions (GLOBAL, LOCAL, RWALK, MASK with consolidation
            and a refine pass, an armed session that grows, LOCAL_REFERENCE
            and GLOBAL_REFERENCE), a bulk build, the reference engine (equal
            to the batched engine at W = 1 on each device),
-           consolidate_reference and one BatchedServer step run on the card
-           and on the CPU must leave byte-equal state and results;
+           consolidate_reference, one BatchedServer step and a small
+           sharded stream (8 shards of 64 slots, f32 and bf16 rows: routed
+           inserts, fan-out queries, GLOBAL, LOCAL and MASK deletes,
+           consolidate, grow) run on the card and on the CPU must leave
+           byte-equal state and results;
   sift1m   the main path: bulk-build a 10^6-vector SIFT-shaped index into
            2^20 slots, stream rounds (2 of the cell's 4 by default, printed
            as ``reduced``) of queries, inserts and GLOBAL deletes
@@ -74,7 +81,21 @@ Phases, each printing one JSON line:
            batch fill, shed counts, recall@10 of the served answers, no
            served id non-alive; then ``python -m repro_torch.launch.serve``
            at --scale 10000 (printed as ``reduced``) plain, --tiered and
-           checkpointed in parallel, and --recover from the checkpoints.
+           checkpointed in parallel, and --recover from the checkpoints;
+  sharded  cell sift1m-sharded: the base placed by elastic.reshard (hash
+           routing) into 8 shards of 2^17 slots (mesh 4 × 2) stacked on the
+           card, rows in bf16 (the sharded config's vec_dtype); 2 rounds of
+           512 routed inserts, 4 fan-out ops of 256 held-out queries, 512
+           GLOBAL deletes and a flush; 2,048 MASK deletes and consolidate;
+           a lockstep grow to 2^18 and 512 more inserts; a reshard to 4
+           shards and one more query op. Acked inserts keep a unique gid on
+           their owner, alive with their row through the grow and the
+           remap; no answer non-alive; I1–I7 per shard after every round;
+           no tombstone left; nothing refused; the first query op of each
+           round bit-equal between the folded fan-out and the per-shard
+           loop (whose launches are not counted); rates, consolidate, grow
+           and reshard seconds, recall@10 of 1,000 held-out queries against
+           score_topk over every alive row, peak memory, launches.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -102,6 +123,9 @@ KERNELS = {
     "gather_scores": dict(
         source="src/repro_torch/kernels/csrc/gather_scores.cu",
         replaces="src/repro/kernels/gather_distance.py:37"),
+    "gather_scores_bf16": dict(
+        source="src/repro_torch/kernels/csrc/gather_scores.cu",
+        replaces="src/repro/kernels/gather_distance.py:37"),
     "gather_scores_q8": dict(
         source="src/repro_torch/kernels/csrc/gather_scores.cu",
         replaces="src/repro/kernels/gather_distance.py:87"),
@@ -112,6 +136,9 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/score_matrix.cu",
         replaces="src/repro/kernels/distance_matrix.py:59"),
 }
+# the kernels of the f32 session paths (sift1m, maint, durable, tiered,
+# serve); the bf16-row gather runs on the sharded path
+F32_PATH_KERNELS = tuple(k for k in KERNELS if k != "gather_scores_bf16")
 # (rows R, candidates n) of SELECT-NEIGHBORS' pair matrix at the sift1m
 # settings (d = 128, pool 64, d_out 32, d_in 64, chunk 64): insert, GLOBAL
 # repair, refine, LOCAL, RWALK
@@ -256,10 +283,10 @@ def graph_ms_rotating(fn, n_sets: int) -> float:
     return ms
 
 
-def gather_byte_bound_ms(B: int, C: int, d: int, q8: bool) -> float:
-    """Each row, id, norm or scale and score once, and q once, over 3.35 TB/s."""
-    row = d if q8 else 4 * d
-    return (B * C * (row + 12) + B * d * 4) / PEAK_BYTES_PER_S * 1e3
+def gather_byte_bound_ms(B: int, C: int, d: int, row_bytes: int) -> float:
+    """Each row (4d bytes fp32, 2d bf16, d q8), id, norm or scale and score
+    once, and q once, over 3.35 TB/s."""
+    return (B * C * (row_bytes + 12) + B * d * 4) / PEAK_BYTES_PER_S * 1e3
 
 
 def gather_tables(torch, make, full, dev, n_small: int = 1 << 16):
@@ -348,6 +375,48 @@ def gather_graph_replay(torch, kops, dev, g, table, tsq) -> bool:
     return bool(torch.equal(out, kops.gather_scores(table, tsq, new_ids, new_q)))
 
 
+def offset_copy(torch, src, dtype, offset: int):
+    """``src`` in ``dtype`` at ``offset`` elements into a fresh buffer."""
+    buf = torch.empty(src.numel() + offset, dtype=dtype, device=src.device)
+    out = buf[offset:].view(src.shape)
+    out.copy_(src)
+    return out
+
+
+def bf16_gather_exactness(torch, kops, kref, dev, g, xi, xg) -> dict:
+    """The bf16-row gather on the bf16 cast of every ``gather_tables``
+    table, at the table's element offset: bit-equal to the fp32 kernel on
+    the f32 table of its widened rows at the same offset (so both take the
+    same piece width), byte-equal to its plain version on integer data and
+    within rtol 1e-4 / atol 1e-3 of it on Gaussian data, at B 64 and 4,096
+    × C 32 with ``edge_ids``. Returns the largest Gaussian errors."""
+    report = {}
+    for kind in ("int", "gauss"):
+        make = ((lambda shape: _int_data(g, shape, dev)) if kind == "int"
+                else (lambda shape: torch.randn(shape, generator=g, device=dev)))
+        full = xi if kind == "int" else xg
+        for label, t, _ in gather_tables(torch, make, full, dev):
+            N, d = t.shape
+            off = t.storage_offset()
+            tb = offset_copy(torch, t.bfloat16(), torch.bfloat16, off)
+            tw = offset_copy(torch, tb.float(), torch.float32, off)
+            tsq = (tw * tw).sum(1)
+            for B in (64, 4096):
+                ids = edge_ids(torch, g, N, B, 32, dev)
+                q = make((B, d))
+                for metric in ("l2", "ip"):
+                    what = f"gather_scores_bf16 {kind} {label} B={B} {metric}"
+                    got = kops.gather_scores(tb, tsq, ids, q, metric=metric)
+                    check(torch.equal(got, kops.gather_scores(tw, tsq, ids, q, metric=metric)),
+                          f"{what}: not bit-equal to the fp32 kernel on the widened rows")
+                    want = kref.gather_scores(tb, tsq, ids, q, metric)
+                    if kind == "int":
+                        check(torch.equal(got, want), f"{what}: integer data not exact")
+                    else:
+                        report[f"{label}_B{B}_{metric}"] = _close(got, want)
+    return report
+
+
 def phase_kernels(torch, kops, kref, dev) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -364,6 +433,7 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     xi = _int_data(g, (N, d), dev)
     xg = torch.randn((N, d), generator=g, device=dev)
     report = gather_exactness(torch, kops, kref, dev, g, xi, xg)
+    report_bf16 = bf16_gather_exactness(torch, kops, kref, dev, g, xi, xg)
     # grown-tier table sizes and the tier boundary ids
     for M in (1 << 10, (1 << 10) + 1, 3 << 10, 1 << 17, (1 << 17) + 1, 3 << 17):
         t = xg[:M].contiguous()
@@ -385,10 +455,11 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     B, C = 4096, 32
     q = torch.randn((B, d), generator=g, device=dev)
     cg, sg = quantize_rows(xg)
+    xb = xg.bfloat16()
 
-    def lib_gather(ids, q):
+    def lib_gather(ids, q, table=xg):
         safe = ids.long().flatten()
-        rows = xg.index_select(0, safe).view(*ids.shape, d)
+        rows = table.index_select(0, safe).view(*ids.shape, d).float()
         return (2.0 * torch.einsum("bcd,bd->bc", rows, q)
                 - tsq.index_select(0, safe).view(ids.shape))
 
@@ -399,10 +470,14 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
         return s * (2.0 * torch.einsum("bcd,bd->bc", rows, q)
                     - s * torch.einsum("bcd,bcd->bc", rows, rows))
 
-    for name, table, aux, lib, row_bytes in (
-            ("gather_scores", xg, tsq, lib_gather, 4 * d),
-            ("gather_scores_q8", cg, sg, lib_gather_q8, d)):
-        kfn, pfn = getattr(kops, name), getattr(kref, name)
+    for name, fn_name, table, aux, lib, row_bytes, errs in (
+            ("gather_scores", "gather_scores", xg, tsq, lib_gather, 4 * d,
+             [v[0] for v in report.values()]),
+            ("gather_scores_bf16", "gather_scores", xb, tsq,
+             lambda i, q: lib_gather(i, q, xb), 2 * d, list(report_bf16.values())),
+            ("gather_scores_q8", "gather_scores_q8", cg, sg, lib_gather_q8, d,
+             [v[1] for v in report.values()])):
+        kfn, pfn = getattr(kops, fn_name), getattr(kref, fn_name)
         rot = id_rotation(g, N, B, C, row_bytes, dev)
         n = rot.shape[0]
         rot64 = id_rotation(g, N, 64, C, row_bytes, dev)
@@ -412,19 +487,18 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
             ms=median_ms_rotating(lambda i: kfn(table, aux, rot[i], q, metric="l2"), n),
             plain_ms=median_ms_rotating(lambda i: pfn(table, aux, rot[i], q, "l2"), n),
             library_ms=median_ms_rotating(lambda i: lib(rot[i], q), n),
-            bound_ms=gather_byte_bound_ms(B, C, d, name == "gather_scores_q8"),
+            bound_ms=gather_byte_bound_ms(B, C, d, row_bytes),
             bound_by="bytes",
-            max_abs_err=max(v[0 if name == "gather_scores" else 1]
-                            for v in report.values()),
+            max_abs_err=max(errs),
             device_ms=graph_ms_rotating(lambda i: kfn(table, aux, rot[i], q, metric="l2"), n),
             ms_B64=median_ms_rotating(lambda i: kfn(table, aux, rot64[i], q64), n64),
             device_ms_B64=graph_ms_rotating(lambda i: kfn(table, aux, rot64[i], q64), n64),
             plain_ms_B64=median_ms_rotating(lambda i: pfn(table, aux, rot64[i], q64, "l2"), n64),
             library_ms_B64=median_ms_rotating(lambda i: lib(rot64[i], q64), n64),
-            bound_ms_B64=gather_byte_bound_ms(64, C, d, name == "gather_scores_q8"),
+            bound_ms_B64=gather_byte_bound_ms(64, C, d, row_bytes),
             rotation_sets=n, shape=dict(B=B, C=C, N=N, d=d))
         del rot, rot64
-    del cg, sg
+    del cg, sg, xb
 
     # ---- score_topk: ids identical on integer data ----
     # B = 1,000 is no multiple of the query tile (128, or 64 at k > 70) and
@@ -793,6 +867,48 @@ def run_parity_reference(device: str) -> dict:
     return out
 
 
+def run_parity_sharded(device: str) -> dict:
+    """A small sharded stream, S 8 (mesh 4 × 2), cap 64, integer-valued rows,
+    f32 and bf16: routed inserts, fan-out queries, GLOBAL, LOCAL and MASK
+    deletes, a consolidation and a lockstep grow."""
+    import numpy as np
+
+    from repro_torch.core import IndexParams, MaintenanceParams, SearchParams
+    from repro_torch.core.graph import graph_state_to_numpy
+    from repro_torch.distributed import DistParams, ShardedSession, ShardMesh
+
+    mesh = ShardMesh((4, 2), ("data", "model"))
+    rng = np.random.default_rng(5)
+    X = rng.integers(-4, 5, (384, 16)).astype(np.float32)
+    Q = rng.integers(-4, 5, (32, 16)).astype(np.float32)
+    out = {}
+    for vd in ("float32", "bfloat16"):
+        ip = IndexParams(capacity=64, dim=16, d_out=8,
+                         search=SearchParams(pool_size=16, max_steps=32, num_starts=2),
+                         maintenance=MaintenanceParams(delete_chunk=16,
+                                                       consolidate_chunk=16,
+                                                       max_capacity=128))
+        sess = ShardedSession(DistParams(index=ip, vec_dtype=vd), mesh, seed=7,
+                              device=device)
+        r = {"g0": sess.insert(X[:192], np.arange(192)).cpu().numpy()}
+        r["q0"] = tuple(t.cpu().numpy() for t in sess.query(Q))
+        g = r["g0"]
+        for i, strategy in enumerate(("global", "local", "mask")):
+            sess.strategy = strategy
+            sess.delete(g[i::6][:24])
+        sess.consolidate()
+        sess.grow(128)
+        r["g1"] = sess.insert(X[192:], np.arange(192, 384)).cpu().numpy()
+        sess.flush()
+        r["q1"] = tuple(t.cpu().numpy() for t in sess.query(Q))
+        r["state"] = {f: (a.view(np.uint16) if a.dtype.itemsize == 2 else a)
+                      for f, a in graph_state_to_numpy(sess.state).items()}
+        r["counters"] = np.asarray([sess.timers.n_grows, sess.timers.n_consolidated,
+                                    sess.timers.n_refused])
+        out[vd] = r
+    return out
+
+
 def _flatten(obj, prefix=""):
     if isinstance(obj, dict):
         for k, v in obj.items():
@@ -810,12 +926,14 @@ def phase_parity() -> dict:
     gpu = dict(_flatten({"session": run_parity_session("cuda"),
                          "build": run_parity_build("cuda"),
                          "maint": run_parity_maint("cuda"),
-                         "reference": run_parity_reference("cuda")}))
+                         "reference": run_parity_reference("cuda"),
+                         "sharded": run_parity_sharded("cuda")}))
     t1 = time.perf_counter()
     cpu = dict(_flatten({"session": run_parity_session("cpu"),
                          "build": run_parity_build("cpu"),
                          "maint": run_parity_maint("cpu"),
-                         "reference": run_parity_reference("cpu")}))
+                         "reference": run_parity_reference("cpu"),
+                         "sharded": run_parity_sharded("cpu")}))
     t2 = time.perf_counter()
     check(gpu.keys() == cpu.keys(), "parity: result keys differ")
     bad = [k for k in gpu if not np.array_equal(gpu[k], cpu[k])]
@@ -824,6 +942,12 @@ def phase_parity() -> dict:
     mask, grow = gpu["maint.mask.counters"], gpu["maint.grow.counters"]
     check(mask[0] >= 1 and mask[2] == 1, "parity: MASK session did not consolidate/refine")
     check(grow[1] >= 1 and grow[3] > 256, "parity: armed session did not grow")
+    for vd in ("float32", "bfloat16"):
+        n_grows, n_cons, n_refused = gpu[f"sharded.{vd}.counters"]
+        check(n_grows == 1 and n_cons > 0 and n_refused == 0,
+              f"parity: the {vd} sharded stream did not grow or consolidate")
+    check(gpu["sharded.bfloat16.state.vectors"].dtype == np.uint16,
+          "parity: the bf16 sharded state does not hold bf16 rows")
     return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1)
 
 
@@ -936,8 +1060,8 @@ def phase_sift1m(torch, n_base: int, rounds: int, per_round: int) -> dict:
     out["items_per_s"] = {k: rounds * per_round / v for k, v in op_s.items() if v > 0}
     out["timers"] = sess.timers.to_dict()
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    for name, n in out["launches"].items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in F32_PATH_KERNELS:
+        check(out["launches"][name] > 0, f"kernel {name} was not launched on the main path")
     return out
 
 
@@ -1883,10 +2007,302 @@ def phase_serve(torch, n_base: int, n_closed: int = 2048, n_open: int = 2048,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded index: 10^6 vectors in 8 shards on one card
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = ((4, 2), ("data", "model"))
+SHARD_QUERY_OPS, SHARD_QUERY_BATCH = 4, 256
+
+
+def shard_capacity(n_base: int, per_round: int, n_shards: int) -> int:
+    """Slots per shard: the smallest power of two over a shard's share of
+    the base plus one round of inserts (2^17 at 10^6 in 8 shards)."""
+    return 1 << max(10, (-(-n_base // n_shards) + per_round).bit_length())
+
+
+def bf16_rows(torch, state):
+    """The stacked state with its rows kept in bf16, as the sharded config
+    stores them (``DistParams(vec_dtype="bfloat16")``): each present row cast
+    to bf16, its sqnorm and int8 codes taken from the cast row — the bytes
+    the insert path writes for a bf16 row; the graph is the one bulk-built
+    over the f32 rows (``reshard`` builds f32 states, as JAX's does)."""
+    from repro_torch.core.distances import sqnorm
+    from repro_torch.core.quantize import quantize_rows
+    vb = state.vectors.bfloat16()
+    p = state.present
+    codes, scales = quantize_rows(vb)
+    return dataclasses.replace(
+        state, vectors=vb, sqnorms=torch.where(p, sqnorm(vb), 0.0),
+        codes=torch.where(p[..., None], codes, 0),
+        scales=torch.where(p, scales, 0.0))
+
+
+def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
+                  device: str = "cuda") -> dict:
+    """Cell sift1m-sharded: the base placed by ``elastic.reshard`` (hash
+    routing) into 8 shards of a (4, 2) mesh stacked on one card, rows in
+    bf16; ``rounds`` rounds of ``per_round`` routed inserts, 4 fan-out query
+    ops of 256, ``per_round`` GLOBAL deletes and a flush; a MASK stretch of
+    4·``per_round`` deletes and ``consolidate``; a lockstep grow to twice the
+    per-shard capacity and one more insert round; ``reshard`` to 4 shards
+    and a query op. Checks acked inserts (unique gid, owner ``route % 8``,
+    alive with their row, also through the grow and the reshard remap), no
+    answer non-alive, I1–I7 per shard after every round, no tombstone left,
+    nothing refused, and the first query op of each round bit-equal between
+    the folded fan-out and the per-shard loop plus merge."""
+    import numpy as np
+
+    from repro_torch.core import metrics, prng
+    from repro_torch.core.graph import NULL
+    from repro_torch.core.health import check_health
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.distributed import (DistParams, ShardedSession, ShardMesh,
+                                         init_sharded_state, make_query_step,
+                                         reshard)
+    from repro_torch.distributed.ann import shard_view
+    from repro_torch.kernels import ops as kops
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def wait():
+        if on_card:
+            torch.cuda.synchronize()
+
+    mesh = ShardMesh(*SHARD_MESH)
+    S = 8
+    n_ins = (rounds + 1) * per_round
+    n_mask = 4 * per_round
+    data = make_dataset("sift", n_base + n_ins + 1000, seed=0)
+    base, fresh, held = data[:n_base], data[n_base:n_base + n_ins], data[n_base + n_ins:]
+    stream_q = make_dataset("sift", rounds * SHARD_QUERY_OPS * SHARD_QUERY_BATCH
+                            + SHARD_QUERY_BATCH, seed=1)
+    cap = shard_capacity(n_base, per_round, S)
+    params = sift_params(cap, strategy="global", max_capacity=2 * cap)
+    dp = DistParams(index=params, vec_dtype="bfloat16")
+    stride = dp.gid_stride()
+    rng = np.random.default_rng(0)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"n_base": n_base, "shards": S, "mesh": list(SHARD_MESH[0]),
+           "capacity_per_shard": cap, "gid_stride": stride,
+           "vec_dtype": dp.vec_dtype}
+    excluded = dict.fromkeys(kops.launches, 0)   # launches of the comparisons
+    kops.reset_launches()                       # the sharded path starts here
+
+    # ---- placement: the base as one shard, re-sharded by hash to 8 ----
+    t0 = time.perf_counter()
+    src_params = sift_params(1 << max(10, (n_base - 1).bit_length()))
+    src = init_sharded_state(DistParams(index=src_params),
+                             ShardMesh((1, 1), ("data", "model")), device=dev)
+    src.vectors[0, :n_base] = torch.from_numpy(base).to(dev)
+    src.alive[0, :n_base] = True
+    placed, remap = reshard(src, src_params, params, S)
+    del src
+    state = bf16_rows(torch, placed)
+    del placed
+    wait()
+    out["place_s"] = time.perf_counter() - t0
+    base_gid = remap[:n_base]
+    check(bool((base_gid >= 0).all()), "sharded: a base row was not placed")
+    check(bool((base_gid // stride == np.arange(n_base) % S).all()),
+          "sharded: a base row was placed off its hash owner")
+    sess = ShardedSession(dp, mesh, seed=0, state=state)
+    del state
+    live = np.zeros(S * stride, bool)           # host book of alive gids
+    live[base_gid] = True
+    acked = {}                                  # gid → row of ``fresh``
+
+    def verify(tag):
+        st = sess.state
+        capx = st.vectors.shape[1]
+        str_x = sess.dp.gid_stride()
+        alive = st.alive.cpu().numpy()
+        gl = np.flatnonzero(live)
+        check(int(alive.sum()) == gl.size and bool(alive[gl // str_x, gl % str_x].all()),
+              f"sharded {tag}: the alive set differs from the host's book")
+        keep = np.array(sorted(acked), np.int64)
+        sh = torch.as_tensor(keep // str_x, device=dev)
+        lid = torch.as_tensor(keep % str_x, device=dev)
+        check(bool(st.alive[sh, lid].all()), f"sharded {tag}: an acked insert is not alive")
+        want = torch.from_numpy(fresh[[acked[g] for g in keep.tolist()]]).to(dev)
+        check(torch.equal(st.vectors[sh, lid], want.bfloat16().to(st.vectors.dtype)),
+              f"sharded {tag}: an acked insert's row differs from the inserted one")
+        for s_ in range(st.vectors.shape[0]):
+            errs = check_health(shard_view(st, s_))
+            check(not errs, f"sharded {tag}: shard {s_} health: {errs}")
+        check(capx == sess.dp.index.capacity, f"sharded {tag}: capacity book")
+
+    def answers_alive(gids, tag):
+        g = gids.cpu().numpy()
+        g = g[g != NULL]
+        str_x = sess.dp.gid_stride()
+        dev_alive = sess.state.alive[torch.as_tensor(g // str_x, device=dev),
+                                     torch.as_tensor(g % str_x, device=dev)]
+        check(bool(live[g].all()) and bool(dev_alive.all()),
+              f"sharded {tag}: an answer holds a deleted or non-alive gid")
+
+    def recall(tag):
+        """recall@10 of one fan-out op of the held-out queries against the
+        exact top-10 over every alive row (score_topk on the flat table)."""
+        st = sess.state
+        capx = st.vectors.shape[1]
+        str_x = sess.dp.gid_stride()
+        idx = torch.nonzero(st.alive.reshape(-1)).flatten()
+        x = st.vectors.reshape(-1, st.dim)[idx].float().contiguous()
+        xsq = st.sqnorms.reshape(-1)[idx].contiguous()
+        qh = torch.from_numpy(held).to(dev)
+        _, pos = kops.score_topk(x, xsq, qh, 10, metric=st.metric)
+        flat = idx[pos.long()]
+        true_gid = torch.div(flat, capx, rounding_mode="floor") * str_x + flat % capx
+        del x, xsq
+        wait()
+        t = time.perf_counter()
+        found, _ = sess.query(held)
+        wait()
+        out[f"held_query_s_{tag}"] = time.perf_counter() - t
+        answers_alive(found, f"recall {tag}")
+        out[f"recall10_{tag}"] = float(metrics.recall_at_k(
+            found[:, :10].long(), true_gid, 10))
+
+    def insert_round(lo, tag, timed_as="insert"):
+        rows = fresh[lo:lo + per_round]
+        route = n_base + lo + np.arange(per_round)
+        wait()
+        t = time.perf_counter()
+        g = sess.insert(rows, route).cpu().numpy()
+        op_s[timed_as] += time.perf_counter() - t
+        check(bool((g != NULL).all()), f"sharded {tag}: an insert was refused")
+        check(bool((g // sess.dp.gid_stride() == route % S).all()),
+              f"sharded {tag}: an insert landed off its owner route % 8")
+        check(np.unique(g).size == g.size and not bool(live[g].any()),
+              f"sharded {tag}: a gid was handed out twice")
+        live[g] = True
+        acked.update(zip(g.tolist(), range(lo, lo + per_round)))
+
+    recall("before")
+    op_s = {"query": 0.0, "insert": 0.0, "insert_after_grow": 0.0, "delete": 0.0}
+    fold_checked = 0
+    qi = 0
+    for rnd in range(rounds):
+        insert_round(rnd * per_round, f"round {rnd}")
+        for j in range(SHARD_QUERY_OPS):
+            q = stream_q[qi:qi + SHARD_QUERY_BATCH]
+            qi += SHARD_QUERY_BATCH
+            wait()
+            t = time.perf_counter()
+            gids, scores = sess.query(q)
+            wait()
+            op_s["query"] += time.perf_counter() - t
+            answers_alive(gids, f"round {rnd}")
+            if j == 0:
+                # the plain version: one beam_search per shard, then the merge
+                before = dict(kops.launches)
+                # the session's op key: its seed chain at the op's index
+                key = prng.fold_in(prng.prng_key(0, device=device),
+                                   sess._op_counter - 1)
+                pi, ps = make_query_step(sess.dp, mesh, fold=False)(
+                    sess.state, q, key)
+                for k in kops.launches:
+                    excluded[k] += kops.launches[k] - before[k]
+                check(torch.equal(pi, gids) and torch.equal(ps, scores),
+                      f"sharded round {rnd}: the folded fan-out differs from "
+                      f"the per-shard loop")
+                fold_checked += 1
+        dels = rng.choice(np.flatnonzero(live), per_round, replace=False).astype(np.int32)
+        wait()
+        t = time.perf_counter()
+        sess.delete(dels)
+        sess.flush()
+        op_s["delete"] += time.perf_counter() - t
+        live[dels] = False
+        for g in dels.tolist():
+            acked.pop(g, None)
+        verify(f"round {rnd}")
+
+    # ---- MASK stretch, then consolidation ----
+    sess.strategy = "mask"
+    dels = rng.choice(np.flatnonzero(live), n_mask, replace=False).astype(np.int32)
+    wait()
+    t = time.perf_counter()
+    sess.delete(dels)
+    sess.flush()
+    out["mask_deletes_per_s"] = n_mask / (time.perf_counter() - t)
+    live[dels] = False
+    for g in dels.tolist():
+        acked.pop(g, None)
+    check(int(sess.state.masked.sum()) == n_mask, "sharded: MASK left no tombstones")
+    t = time.perf_counter()
+    n_cons = sess.consolidate()
+    sess.flush()
+    out["consolidate_s"] = time.perf_counter() - t
+    check(n_cons == n_mask and int(sess.state.masked.sum()) == 0,
+          "sharded: a tombstone remains after consolidate")
+    sess.strategy = "global"
+    verify("consolidate")
+
+    # ---- lockstep grow, then one more insert round at the new tier ----
+    t = time.perf_counter()
+    sess.grow(2 * cap)
+    wait()
+    out["grow_s"] = time.perf_counter() - t
+    check(sess.state.vectors.shape[:2] == (S, 2 * cap), "sharded: grow")
+    insert_round(rounds * per_round, "after grow", timed_as="insert_after_grow")
+    sess.flush()
+    verify("grow")
+    check(sess.timers.n_refused == 0, "sharded: inserts were refused")
+    timers = sess.timers.to_dict()
+
+    # ---- reshard 8 → 4 shards at 2·cap slots each ----
+    new_params = sift_params(2 * cap, strategy="global", max_capacity=2 * cap)
+    t = time.perf_counter()
+    new_state, remap = reshard(sess.state, sess.dp.index, new_params, 4)
+    wait()
+    out["reshard_s"] = time.perf_counter() - t
+    old_live = np.flatnonzero(live)
+    new_gid = remap[old_live]
+    check(bool((new_gid >= 0).all()), "sharded: an alive gid has no remap")
+    live[:] = False
+    live[new_gid] = True
+    acked = {int(remap[g]): row for g, row in acked.items()}
+    sess = ShardedSession(DistParams(index=new_params), ShardMesh((2, 2), ("data", "model")),
+                          seed=1, state=new_state)
+    del new_state
+    verify("reshard")
+    q = stream_q[qi:qi + SHARD_QUERY_BATCH]
+    wait()
+    t = time.perf_counter()
+    gids, _ = sess.query(q)
+    wait()
+    out["resharded_query_s"] = time.perf_counter() - t
+    answers_alive(gids, "after reshard")
+    recall("after")
+    wait()
+    launches = {k: kops.launches[k] - excluded[k] for k in kops.launches}
+    out["launches"] = launches                  # the sharded path ends here
+    out["launches_excluded_comparisons"] = excluded
+    out["gather_launches_by_shape"] = gather_shape_split(kops)
+    out["fold_equal_ops"] = fold_checked
+    n_q = rounds * SHARD_QUERY_OPS * SHARD_QUERY_BATCH
+    out["items_per_s"] = {"query": n_q / op_s["query"],
+                          "insert": rounds * per_round / op_s["insert"],
+                          "insert_after_grow": per_round / op_s["insert_after_grow"],
+                          "delete_global": rounds * per_round / op_s["delete"]}
+    out["timers"] = timers
+    out["peak_mem_gib"] = peak_gib(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    if on_card:
+        for name in ("gather_scores_bf16", "gather_scores", "score_topk", "score_matrix"):
+            check(launches[name] > 0, f"kernel {name} was not launched on the sharded path")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,parity,sift1m,maint,durable,tiered,serve")
+                    default="build,kernels,parity,sift1m,maint,durable,tiered,serve,sharded")
     ap.add_argument("--n-base", type=int, default=1_000_000)
     # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
     # near half its time limit (PERF.md §4)
@@ -1930,7 +2346,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift, maint, durable, tiered, serve = {}, {}, {}, {}, {}
+    sift, maint, durable, tiered, serve, sharded = {}, {}, {}, {}, {}, {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -1977,8 +2393,9 @@ def main(argv=None) -> int:
         if "tiered" in phases:
             tiered = phase_tiered(torch, args.n_base, args.per_round)
             emit({"phase": "tiered", "card": smi, **tiered})
-            for name, n in tiered["launches"].items():
-                check(n > 0, f"kernel {name} was not launched on the tiered path")
+            for name in F32_PATH_KERNELS:
+                check(tiered["launches"][name] > 0,
+                      f"kernel {name} was not launched on the tiered path")
             torch.cuda.empty_cache()
         if "serve" in phases:
             # --per-round requests per closed and open run, half as many
@@ -1998,6 +2415,18 @@ def main(argv=None) -> int:
             for name in ("gather_scores", "score_topk"):
                 check(serve["launches"][name] > 0,
                       f"kernel {name} was not launched on the serve path")
+        if "sharded" in phases:
+            # 512 inserts and deletes a round at the default --per-round
+            shard_round = max(1, args.per_round // 4)
+            if args.n_base != 1_000_000 or shard_round != 512:
+                emit({"reduced": {"sharded": {"n_base": args.n_base,
+                                              "per_round": shard_round,
+                                              "of": {"n_base": 1_000_000,
+                                                     "per_round": 512}}}})
+            torch.cuda.empty_cache()
+            sharded = phase_sharded(torch, args.n_base, shard_round)
+            emit({"phase": "sharded", "card": smi, **sharded})
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2012,6 +2441,7 @@ def main(argv=None) -> int:
             "launches_durable": durable.get("launches", {}).get(name, 0),
             "launches_tiered": tiered.get("launches", {}).get(name, 0),
             "launches_serve": serve.get("launches", {}).get(name, 0),
+            "launches_sharded": sharded.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

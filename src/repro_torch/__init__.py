@@ -12,6 +12,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# On the CPU, torch computes log, exp, ... with MKL's VML where it is built
+# with MKL. VML picks its kernels by a CPU type that it detects on its first
+# call and caches in a static, which holds the untranslated CPU code for a
+# moment before the translated type. A second intra-op thread that makes
+# its own first call in that moment dispatches on the wrong type: on an
+# AVX-512 host it runs the AVX2 kernel of the low-accuracy mode (relative
+# errors near 1e-4) for its part of the op. One call here, on one thread,
+# settles the type before any op is split over threads.
+torch.log(torch.ones(1))
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → ``cuda``. A CUDA request without a card raises: the port

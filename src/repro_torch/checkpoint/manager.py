@@ -18,8 +18,15 @@ the other's checkpoints: dict keys sorted, a ``GraphState`` as its 13 data
 fields in declaration order under ``.<field>``, sequences by index, joined
 with ``/`` (``graph/.vectors``). The arrays keep their dtypes; the caller
 hands in the dtypes the JAX tree has (``base_key`` as uint32[2], the
-scalars as 0-d int32). JAX's elastic ``shardings=`` re-placement has no
-counterpart: the caller moves the restored arrays to its device.
+scalars as 0-d int32). A bf16 leaf is written as its 16-bit words in the
+2-byte void dtype, as ``np.save`` writes a JAX bf16 array, and comes back
+so (``core.graph.graph_state_from_numpy`` reads it as bf16). A stacked
+sharded state ``[S, cap, ...]`` is a tree like any other, so either
+package restores the other's. JAX's ``restore(shardings=)`` places each
+leaf on a mesh; on one device its counterpart is the caller's device: the
+leaves come back as host arrays and the caller moves them there (for a
+sharded state, ``graph_state_from_numpy(..., device=...)``), and
+``distributed.elastic.reshard`` re-shards to another shard count.
 
 ``timings`` holds the seconds of each step of the last save or restore
 (each a full host copy of the state at 10^6 vectors): ``to_host_s``,
@@ -37,7 +44,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.graph import DATA_FIELDS, GraphState
+from repro_torch.core.graph import DATA_FIELDS, GraphState, tensor_to_numpy
 from repro_torch.testing import faults
 
 
@@ -87,7 +94,7 @@ def _unflatten(like: Any, leaves: list[np.ndarray]) -> Any:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        return tensor_to_numpy(leaf)
     return np.asarray(leaf)
 
 

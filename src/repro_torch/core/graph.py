@@ -1,11 +1,14 @@
 """Proximity-graph state — dense fixed-degree tensors, as in ``repro``.
 
 ``GraphState`` holds the same 13 data fields, dtypes and static metadata as
-``repro.core.graph.GraphState``; the scalars ``size``/``clock``/``tclock``
-are 0-d int32 tensors on the state's device, so updates never wait for the
-host. JAX donates the state to its jitted steps; the port instead updates
-the state's tensors **in place** — every mutator below says so — and
-returns the same object.
+``repro.core.graph.GraphState`` (``vectors`` f32, or bf16 when the state is
+made with ``dtype=torch.bfloat16`` as the sharded index's config does); the
+scalars ``size``/``clock``/``tclock`` are 0-d int32 tensors on the state's
+device, so updates never wait for the host. The sharded index stacks the
+same fields on a leading shard axis (``repro_torch.distributed.ann``).
+JAX donates the state to its jitted steps; the port instead updates the
+state's tensors **in place** — every mutator below says so — and returns
+the same object.
 
 Invariants (checked by :func:`repro_torch.core.health.check_health`):
 
@@ -46,7 +49,7 @@ _DTYPES = {
 class GraphState:
     """The full index on one device."""
 
-    vectors: torch.Tensor   # f32[capacity, dim]
+    vectors: torch.Tensor   # f32 or bf16[capacity, dim]
     sqnorms: torch.Tensor   # f32[capacity]
     codes: torch.Tensor     # i8[capacity, dim]
     scales: torch.Tensor    # f32[capacity]
@@ -75,11 +78,19 @@ class GraphState:
         return self.present & ~self.alive
 
 
+VECTOR_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def init_graph(capacity: int, dim: int, *, d_out: int = 16,
                d_in: int | None = None, metric: str = "l2",
-               device=None) -> GraphState:
+               dtype: torch.dtype = torch.float32, device=None) -> GraphState:
+    """An empty state; ``dtype`` is the dtype of ``vectors`` (f32 or bf16).
+    Inserts cast each row to it before its sqnorm and codes are taken, as
+    JAX does, so a bf16 state holds the norms and codes of its bf16 rows."""
     if metric not in ("l2", "ip", "cos"):
         raise ValueError(f"unknown metric {metric!r}")
+    if dtype not in VECTOR_DTYPES:
+        raise ValueError(f"vectors must be f32 or bf16, got {dtype}")
     dev = resolve_device(device)
     d_in = 2 * d_out if d_in is None else d_in
 
@@ -87,7 +98,7 @@ def init_graph(capacity: int, dim: int, *, d_out: int = 16,
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     return GraphState(
-        vectors=full((capacity, dim), 0.0, torch.float32),
+        vectors=full((capacity, dim), 0.0, dtype),
         sqnorms=full((capacity,), 0.0, torch.float32),
         codes=full((capacity, dim), 0, torch.int8),
         scales=full((capacity,), 0.0, torch.float32),
@@ -104,25 +115,57 @@ def init_graph(capacity: int, dim: int, *, d_out: int = 16,
     )
 
 
+def is_bf16_array(a) -> bool:
+    """Whether a numpy array holds bf16 words: ``ml_dtypes.bfloat16`` (what
+    ``np.asarray`` gives for a JAX bf16 array) or the 2-byte void dtype
+    ``np.load`` gives for it without ``ml_dtypes``."""
+    dt = np.asarray(a).dtype
+    return dt.itemsize == 2 and (dt.name == "bfloat16" or dt.kind == "V")
+
+
+def tensor_from_numpy(a, dtype: torch.dtype) -> torch.Tensor:
+    """A host tensor of ``dtype`` from a numpy array; bf16 words (see
+    :func:`is_bf16_array`) are reinterpreted, not converted."""
+    if dtype == torch.bfloat16 and is_bf16_array(a):
+        words = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(words.copy()).view(torch.bfloat16)
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy array (a view of a CPU tensor, which later in-place
+    updates change); a bf16 tensor becomes its 16-bit words as the 2-byte
+    void dtype, which is how ``np.save`` writes a JAX bf16 array."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
 def graph_state_from_numpy(arrays: dict, *, capacity: int, dim: int,
                            d_out: int, d_in: int, metric: str,
                            device=None) -> GraphState:
     """Build a state from numpy arrays keyed by field name (for example
-    ``np.asarray`` of each field of a ``repro`` GraphState)."""
+    ``np.asarray`` of each field of a ``repro`` GraphState). ``vectors``
+    stay bf16 when they are bf16 words, else become f32. Any leading axes
+    before the per-slot axis are kept (the stacked sharded layout)."""
     dev = resolve_device(device)
-    fields = {f: torch.as_tensor(np.array(arrays[f]), dtype=_DTYPES[f]).to(dev)
+    dtypes = dict(_DTYPES)
+    if is_bf16_array(arrays["vectors"]):
+        dtypes["vectors"] = torch.bfloat16
+    fields = {f: tensor_from_numpy(arrays[f], dtypes[f]).to(dev)
               for f in DATA_FIELDS}
     state = GraphState(**fields, capacity=capacity, dim=dim, d_out=d_out,
                        d_in=d_in, metric=metric)
-    if state.vectors.shape != (capacity, dim) or state.adj.shape != (
-            capacity, d_out) or state.radj.shape != (capacity, d_in):
+    if state.vectors.shape[-2:] != (capacity, dim) or state.adj.shape[-2:] != (
+            capacity, d_out) or state.radj.shape[-2:] != (capacity, d_in):
         raise ValueError("array shapes do not match the static metadata")
     return state
 
 
 def graph_state_to_numpy(state: GraphState) -> dict:
-    """Field name → numpy array (host copies)."""
-    return {f: getattr(state, f).cpu().numpy() for f in DATA_FIELDS}
+    """Field name → host numpy array (as :func:`tensor_to_numpy`)."""
+    return {f: tensor_to_numpy(getattr(state, f)) for f in DATA_FIELDS}
 
 
 # ---------------------------------------------------------------------------
@@ -134,11 +177,14 @@ _FILL = {"vectors": 0.0, "sqnorms": 0.0, "codes": 0, "scales": 0.0,
          "stamps": -1, "touch": -1}
 
 
-def grow_state(state: GraphState, new_capacity: int) -> GraphState:
+def grow_state(state: GraphState, new_capacity: int, *, axis: int = 0
+               ) -> GraphState:
     """A new state of ``new_capacity`` slots: existing slots keep their ids
     and bytes, new slots are empty (zero rows, NULL adjacency, not alive,
     not present), so the allocator sees them free and traversals never
-    reach them. ``size``/``clock``/``tclock`` are shared, not copied."""
+    reach them. ``size``/``clock``/``tclock`` are shared, not copied.
+    ``axis`` is the slot axis: 0 for one state, 1 for the stacked per-shard
+    layout, where every shard grows in lockstep."""
     cap = state.capacity
     if new_capacity < cap:
         raise ValueError(f"grow_state cannot shrink: {cap} -> {new_capacity}")
@@ -148,9 +194,10 @@ def grow_state(state: GraphState, new_capacity: int) -> GraphState:
     grown = {}
     for name, fill in _FILL.items():
         t = getattr(state, name)
-        pad = torch.full((extra, *t.shape[1:]), fill, dtype=t.dtype,
-                         device=t.device)
-        grown[name] = torch.cat([t, pad])
+        shape = list(t.shape)
+        shape[axis] = extra
+        pad = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+        grown[name] = torch.cat([t, pad], dim=axis)
     return dataclasses.replace(state, **grown, capacity=new_capacity)
 
 

@@ -65,8 +65,12 @@ def insert_batch_impl(state: GraphState, vecs: torch.Tensor,
                                        offset=key_offset, active=ok)
     res = search.beam_search(state, vecs, starts, sp)
 
-    # ---- phase 3: write the vertices (codes in the same transaction, I5) --
-    vec_cast = distances.normalize(vecs) if params.metric == "cos" else vecs
+    # ---- phase 3: write the vertices (codes in the same transaction, I5);
+    # cast to the table's dtype first, so a bf16 state's norms and codes are
+    # those of its bf16 rows (JAX's order) ----
+    vec_cast = vecs.to(state.vectors.dtype)
+    if params.metric == "cos":
+        vec_cast = distances.normalize(vec_cast)
     code_rows, code_scales = quantize.quantize_rows(vec_cast)
     n_ok = ok.sum(dtype=torch.int32)
     set_drop(state.vectors, slots, vec_cast, ok)
@@ -170,7 +174,7 @@ def insert_one(state: GraphState, vec: torch.Tensor, key: torch.Tensor,
         return state, torch.tensor(NULL, dtype=torch.int32, device=dev)
 
     # as a one-row batch, so the bytes are the batched path's
-    vec_cast = vec[None]
+    vec_cast = vec[None].to(state.vectors.dtype)
     if params.metric == "cos":
         vec_cast = distances.normalize(vec_cast)
     code_row, code_scale = quantize.quantize_rows(vec_cast)

@@ -9,8 +9,8 @@ and the two-tier index journal, checkpoint and replay through these
 entries, and ``repro_torch.testing.faults`` builds its closed crash-point
 registry from them. The codes, stream ids, extras keys and point names are
 frozen at the JAX package's values, so journals and checkpoints cross
-between the packages. The sharded tier is not ported; its point names
-stay so that the registry equals JAX's.
+between the packages. The sharded tier (``repro_torch.distributed.ann.
+ShardedSession``) fires the ``sharded_crash_points`` at JAX's sites.
 """
 from __future__ import annotations
 

@@ -31,3 +31,7 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     codes = torch.clamp(torch.round(x32 / safe[..., None]), -127, 127)
     return codes.to(torch.int8), scales
 
+
+def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """f32[..., d] reconstruction ``codes · scale`` (test/debug helper)."""
+    return codes.float() * scales[..., None]

@@ -68,7 +68,6 @@ from repro_torch.core.session import (
     replay_journal,
     restore_walking_back,
 )
-from repro_torch.core.stable import top_k
 from repro_torch.testing import faults
 
 _HARD_STRATEGIES = ("pure", "local", "global", "rwalk")
@@ -136,12 +135,14 @@ def _top_columns(keys: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
-def _union_topk(ext_ids: np.ndarray, scores: np.ndarray, k: int):
+def _union_topk(ext_ids: np.ndarray, scores: np.ndarray, k: int,
+                device=None):
     """Dedup-by-ext union of per-tier top-k lists → (ids, scores) top-k.
 
     Duplicate external ids keep their best score; NULL lanes never rank.
-    The final pick is ``core/stable.py::top_k`` (``lax.top_k``'s order, as
-    the JAX package's ``distributed.ann.topk_union`` that it replaces)."""
+    The final pick is the sharded fan-in, ``distributed.ann.topk_union``
+    (``lax.top_k``'s order), on ``device`` (the CPU when None): JAX's
+    ``device=True`` route, which gives the same order as its host route."""
     ids = np.ascontiguousarray(ext_ids, np.int32)
     sc = np.ascontiguousarray(scores, np.float32).copy()
     B, W = ids.shape
@@ -159,9 +160,10 @@ def _union_topk(ext_ids: np.ndarray, scores: np.ndarray, k: int):
     flat_s = flat_s.copy()
     flat_s[order[dup]] = -np.inf
     sc = flat_s.reshape(B, W)
-    top_s, pos = top_k(torch.from_numpy(sc), k)
-    top_s = top_s.numpy()
-    top_i = np.take_along_axis(ids, pos.numpy(), axis=1)
+    from repro_torch.distributed.ann import topk_union  # import cycle
+    ts, ti = topk_union(torch.from_numpy(sc).to(device or "cpu"),
+                        torch.from_numpy(ids).to(device or "cpu"), k)
+    top_s, top_i = ts.cpu().numpy(), ti.cpu().numpy()
     top_i = np.where(top_s > -np.inf, top_i, NULL).astype(np.int32, copy=False)
     return top_i, top_s
 
@@ -651,7 +653,7 @@ class TieredSession:
             [_translate(fi.cpu().numpy(), self._fm.ext),
              _translate(mi.cpu().numpy(), self._mm.ext)], axis=1)
         sc = np.concatenate([fs.cpu().numpy(), ms.cpu().numpy()], axis=1)
-        return _union_topk(ids, sc, k)
+        return _union_topk(ids, sc, k, device=self.device)
 
     def recall(self, queries, k: int) -> float:
         ids, _ = self.query(queries, k=k).result()

@@ -1,8 +1,15 @@
-// Fused gather + score over candidate ids, fp32 rows and int8 codes.
+// Fused gather + score over candidate ids: fp32 or bf16 rows, int8 codes.
 //
 // Replaces the Pallas kernels of src/repro/kernels/gather_distance.py:
-//   gather_scores_pallas    (:37, _gd_kernel)  -> gather_scores_f32 below
+//   gather_scores_pallas    (:37, _gd_kernel)  -> gather_scores_f32 and
+//                                                 gather_scores_bf16 below
 //   gather_scores_q8_pallas (:87, _gdq_kernel) -> gather_scores_q8 below
+// The Pallas kernel takes a table of any dtype and widens each row to f32
+// in its body; gather_scores_bf16 is the bf16-row instantiation of the
+// fp32 kernel (the sharded index stores its vectors in bf16): each element
+// widens exactly (its bits shifted into the top half of an f32) and feeds
+// the same fmaf chain, so a bf16 table and the f32 table of its widened
+// values give bit-equal scores. Its rows are half the bytes: B*C*(2d + 12).
 // For each query b and candidate slot c the score of row table[ids[b,c]]
 // against q[b]: l2 = 2<x,q> - tsq[id], ip/cos = <x,q>; the q8 variant scores
 // the dequantized row s*codes: l2 = s*(2<c,q> - s*sum(c^2)), ip/cos = s*<c,q>.
@@ -50,6 +57,8 @@
 //     table is 16-byte aligned, else single floats (lanes stride by 32, the
 //     earlier kernel's order on that path too); q8 rows take 16-byte pieces
 //     when d % 16 == 0 and the codes are 16-byte aligned, else single bytes.
+//     bf16 rows take 4-value (8-byte) pieces when d % 4 == 0 and the table
+//     is 8-byte aligned, else single values, in the fp32 path's order.
 //     Widths over one warp-piece loop over chunks of pieces in order.
 // q is read through the read-only cache, reloaded only where the query of
 // the next row changes (once per tile at C = 32).
@@ -86,6 +95,8 @@ __device__ __forceinline__ float group_sum(float v) {
 // fp32 pieces: VEC consecutive floats a lane
 template <int VEC> struct F32Piece;
 template <> struct F32Piece<4> {
+  using Elem = float;
+  static constexpr int kVec = 4;
   using T = float4;
   static __device__ __forceinline__ T load(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
@@ -99,11 +110,48 @@ template <> struct F32Piece<4> {
   }
 };
 template <> struct F32Piece<1> {
+  using Elem = float;
+  static constexpr int kVec = 1;
   using T = float;
   static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
   static __device__ __forceinline__ T zero() { return 0.f; }
   static __device__ __forceinline__ float fma(const T& v, const float* qv, float acc) {
     return fmaf(v, qv[0], acc);
+  }
+};
+
+// bf16 pieces: VEC consecutive bf16 values a lane (raw 16-bit words). A
+// bf16 value is the top half of an f32, so widening is a shift: exact, and
+// the fmaf order is F32Piece's, element by element.
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+template <int VEC> struct Bf16Piece;
+template <> struct Bf16Piece<4> {
+  using Elem = uint16_t;
+  static constexpr int kVec = 4;
+  using T = uint2;
+  static __device__ __forceinline__ T load(const uint16_t* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ T zero() { return make_uint2(0u, 0u); }
+  static __device__ __forceinline__ float fma(const T& v, const float* qv, float acc) {
+    acc = fmaf(bf16_lo(v.x), qv[0], acc);
+    acc = fmaf(bf16_hi(v.x), qv[1], acc);
+    acc = fmaf(bf16_lo(v.y), qv[2], acc);
+    return fmaf(bf16_hi(v.y), qv[3], acc);
+  }
+};
+template <> struct Bf16Piece<1> {
+  using Elem = uint16_t;
+  static constexpr int kVec = 1;
+  using T = unsigned;
+  static __device__ __forceinline__ T load(const uint16_t* p) {
+    return static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  static __device__ __forceinline__ T zero() { return 0u; }
+  static __device__ __forceinline__ float fma(const T& v, const float* qv, float acc) {
+    return fmaf(bf16_lo(v), qv[0], acc);
   }
 };
 
@@ -132,13 +180,14 @@ template <> struct Q8Piece<1> {
 __device__ __forceinline__ bool in_table(int id, int N) { return id >= 0 && id < N; }
 
 // Warp w of the grid owns rows [w*R, w*R + R) of the flat [B*C] range.
-template <int VEC, int R>
+// Piece is F32Piece (fp32 rows) or Bf16Piece (bf16 rows).
+template <class Piece, int R>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-gather_f32_kernel(const float* __restrict__ table, const float* __restrict__ tsq,
-                  const int* __restrict__ ids, const float* __restrict__ q,
-                  float* __restrict__ out, int N, int d, int C, long long total,
-                  int metric) {
-  using Piece = F32Piece<VEC>;
+gather_rows_kernel(const typename Piece::Elem* __restrict__ table,
+                   const float* __restrict__ tsq, const int* __restrict__ ids,
+                   const float* __restrict__ q, float* __restrict__ out, int N,
+                   int d, int C, long long total, int metric) {
+  constexpr int VEC = Piece::kVec;
   const int lane = threadIdx.x & 31;
   const long long r0 = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
   if (r0 >= total) return;
@@ -280,16 +329,16 @@ inline unsigned blocks_for(long long total, int rows_per_warp) {
   return (unsigned)((total + per_block - 1) / per_block);
 }
 
-template <int VEC>
-int launch_f32(const float* table, const float* tsq, const int* ids, const float* q,
-               float* out, int N, int d, int C, long long total, int metric,
-               int rows_per_warp, cudaStream_t stream) {
+template <class Piece>
+int launch_rows(const typename Piece::Elem* table, const float* tsq, const int* ids,
+                const float* q, float* out, int N, int d, int C, long long total,
+                int metric, int rows_per_warp, cudaStream_t stream) {
   const dim3 grid(blocks_for(total, rows_per_warp));
   switch (rows_per_warp) {
-    case 1: gather_f32_kernel<VEC, 1><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
-    case 2: gather_f32_kernel<VEC, 2><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
-    case 4: gather_f32_kernel<VEC, 4><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
-    case kMaxRowsPerWarp: gather_f32_kernel<VEC, kMaxRowsPerWarp><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
+    case 1: gather_rows_kernel<Piece, 1><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
+    case 2: gather_rows_kernel<Piece, 2><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
+    case 4: gather_rows_kernel<Piece, 4><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
+    case kMaxRowsPerWarp: gather_rows_kernel<Piece, kMaxRowsPerWarp><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -321,10 +370,27 @@ extern "C" int gather_scores_f32(const float* table, const float* tsq,
   const long long total = (long long)B * C;
   if (rows_per_warp < 1) return (int)cudaErrorInvalidValue;
   const bool vec4 = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(table) % 16 == 0);
-  return vec4 ? launch_f32<4>(table, tsq, ids, q, out, N, d, C, total, metric, rows_per_warp,
-                              (cudaStream_t)stream)
-              : launch_f32<1>(table, tsq, ids, q, out, N, d, C, total, metric, rows_per_warp,
-                              (cudaStream_t)stream);
+  return vec4 ? launch_rows<F32Piece<4>>(table, tsq, ids, q, out, N, d, C, total, metric,
+                                         rows_per_warp, (cudaStream_t)stream)
+              : launch_rows<F32Piece<1>>(table, tsq, ids, q, out, N, d, C, total, metric,
+                                         rows_per_warp, (cudaStream_t)stream);
+}
+
+// table holds bf16 values as raw 16-bit words. Four-element pieces need
+// d % 4 == 0 and an 8-byte-aligned table, as the fp32 path's need 16 bytes:
+// on the same d and alignment class both take the same piece width, and
+// so the same summation order.
+extern "C" int gather_scores_bf16(const uint16_t* table, const float* tsq,
+                                  const int* ids, const float* q, float* out,
+                                  int N, int d, int B, int C, int metric,
+                                  int rows_per_warp, void* stream) {
+  const long long total = (long long)B * C;
+  if (rows_per_warp < 1) return (int)cudaErrorInvalidValue;
+  const bool vec4 = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(table) % 8 == 0);
+  return vec4 ? launch_rows<Bf16Piece<4>>(table, tsq, ids, q, out, N, d, C, total, metric,
+                                          rows_per_warp, (cudaStream_t)stream)
+              : launch_rows<Bf16Piece<1>>(table, tsq, ids, q, out, N, d, C, total, metric,
+                                          rows_per_warp, (cudaStream_t)stream);
 }
 
 extern "C" int gather_scores_q8(const int8_t* codes, const float* scales,

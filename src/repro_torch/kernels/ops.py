@@ -32,15 +32,18 @@ GATHER_ROWS_PER_WARP = (1, 2, 4, 8)         # fp32, up to kMaxRowsPerWarp
 GATHER_Q8_LANES_PER_ROW = 8                 # csrc/gather_scores.cu kQ8LanesPerRow
 GATHER_Q8_ROWS_PER_WARP = (4, 8, 16, 32)    # 4 lane groups × 1..kQ8MaxRowsPerGroup
 
-launches = {"gather_scores": 0, "gather_scores_q8": 0, "score_topk": 0,
-            "score_matrix": 0}
-launches_by_shape: dict = {"gather_scores": {}, "gather_scores_q8": {}}
+launches = {"gather_scores": 0, "gather_scores_bf16": 0, "gather_scores_q8": 0,
+            "score_topk": 0, "score_matrix": 0}
+launches_by_shape: dict = {"gather_scores": {}, "gather_scores_bf16": {},
+                           "gather_scores_q8": {}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     ("gather_scores", "gather_scores_f32"): [_P, _P, _P, _P, _P, _I, _I, _I,
                                              _I, _I, _I, _P],
+    ("gather_scores", "gather_scores_bf16"): [_P, _P, _P, _P, _P, _I, _I, _I,
+                                              _I, _I, _I, _P],
     ("gather_scores", "gather_scores_q8"): [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _I, _P],
     ("score_topk", "score_topk_f32"): [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -53,6 +56,9 @@ _SIGNATURES = {
 }
 _SCORE_MATRIX_FN = {torch.float32: "score_matrix_f32",
                     torch.bfloat16: "score_matrix_bf16"}
+# gather_scores' row types: the wrapper's launch counter and the C entry point
+_GATHER_FN = {torch.float32: ("gather_scores", "gather_scores_f32"),
+              torch.bfloat16: ("gather_scores_bf16", "gather_scores_bf16")}
 
 
 def reset_launches() -> None:
@@ -91,9 +97,9 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _gather_args(table, aux, ids, q, table_dtype, name):
-    _require(table.dim() == 2 and table.dtype == table_dtype,
-             f"{name}: table must be 2-D {table_dtype}")
+def _gather_args(table, aux, ids, q, table_dtypes, name):
+    _require(table.dim() == 2 and table.dtype in table_dtypes,
+             f"{name}: table must be 2-D, one of {table_dtypes}")
     _require(aux.dtype == torch.float32 and aux.shape == (table.shape[0],),
              f"{name}: per-row vector must be f32[N]")
     _require(ids.dim() == 2 and q.dim() == 2 and q.shape[0] == ids.shape[0]
@@ -147,20 +153,24 @@ def _gather(name, fn_name, table, aux, ids, q, metric):
 
 def gather_scores(table, tsq, ids, q, *, metric: str = "l2") -> torch.Tensor:
     """[B, C] fused gather + score of each query against its own candidate
-    rows (replaces ``repro.kernels.gather_distance.gather_scores_pallas``)."""
-    table, tsq, ids, q = _gather_args(table, tsq, ids, q, torch.float32,
+    rows (replaces ``repro.kernels.gather_distance.gather_scores_pallas``).
+    The table is f32 or bf16; bf16 rows are widened to f32 exactly and
+    scored in the f32 kernel's order, so they give the bits of the f32
+    table of their widened values. Launches count as ``gather_scores`` or
+    ``gather_scores_bf16`` by row type."""
+    table, tsq, ids, q = _gather_args(table, tsq, ids, q, tuple(_GATHER_FN),
                                       "gather_scores")
     if table.device.type == "cpu":
         return ref.gather_scores(table, tsq, ids, q, metric)
-    return _gather("gather_scores", "gather_scores_f32", table, tsq, ids, q,
-                   metric)
+    name, fn_name = _GATHER_FN[table.dtype]
+    return _gather(name, fn_name, table, tsq, ids, q, metric)
 
 
 def gather_scores_q8(codes, scales, ids, q, *, metric: str = "l2"
                      ) -> torch.Tensor:
     """[B, C] fused gather + asymmetric score over int8 codes (replaces
     ``repro.kernels.gather_distance.gather_scores_q8_pallas``)."""
-    codes, scales, ids, q = _gather_args(codes, scales, ids, q, torch.int8,
+    codes, scales, ids, q = _gather_args(codes, scales, ids, q, (torch.int8,),
                                          "gather_scores_q8")
     if codes.device.type == "cpu":
         return ref.gather_scores_q8(codes, scales, ids, q, metric)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four hand-written kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Each computes, step by step, the same function as its CUDA kernel and as
 the Pallas kernel it replaces, including the wrapper contract: an id < 0
@@ -22,7 +22,8 @@ def _valid_ids(ids: torch.Tensor, n: int):
 
 def gather_scores(table, tsq, ids, q, metric: str = "l2") -> torch.Tensor:
     """[B, C]: ``2<table[id], q[b]> - tsq[id]`` (l2) or ``<table[id], q[b]>``
-    (ip/cos) per (b, c); invalid ids → -inf."""
+    (ip/cos) per (b, c); invalid ids → -inf. A bf16 table's rows are
+    widened to f32 (exact) before the product, as the Pallas kernel does."""
     valid, safe = _valid_ids(ids, table.shape[0])
     rows = table[safe].float()                                  # [B, C, d]
     dots = torch.bmm(rows, q.float()[:, :, None])[..., 0]

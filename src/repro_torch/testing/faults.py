@@ -13,8 +13,8 @@ Plans are data (point → 1-based hit, or a seeded draw from
 closed: ``crash_point`` rejects a name that is not in :data:`CRASH_POINTS`,
 and the tuples below equal the JAX package's element for element. The
 maintenance ops' points come from the registry in ``core/maint.py``; the
-sharded tier is not ported, but its names stay so that the registry is the
-same. ``transient_point(site)`` raises :class:`TransientDispatchError` for
+sharded points fire in ``repro_torch.distributed.ann.ShardedSession`` at
+JAX's sites. ``transient_point(site)`` raises :class:`TransientDispatchError` for
 the first ``k`` hits of a site, which ``Session.flush`` absorbs with
 bounded retries.
 """

@@ -253,12 +253,15 @@ def test_cpu_tensors_take_the_plain_version():
     ids = _t(rng.integers(0, 30, (4, 5)).astype(np.int32))
     q = _t(rng.normal(size=(4, 8)).astype(np.float32))
     tops.gather_scores(x, (x * x).sum(1), ids, q)
+    tops.gather_scores(x.bfloat16(), (x * x).sum(1), ids, q)
     tops.score_topk(x, (x * x).sum(1), q, 3)
     tops.score_matrix(x, (x * x).sum(1), q)
-    assert set(tops.launches) == {"gather_scores", "gather_scores_q8",
-                                  "score_topk", "score_matrix"}
+    assert set(tops.launches) == {"gather_scores", "gather_scores_bf16",
+                                  "gather_scores_q8", "score_topk",
+                                  "score_matrix"}
     assert all(v == 0 for v in tops.launches.values())
-    assert set(tops.launches_by_shape) == {"gather_scores", "gather_scores_q8"}
+    assert set(tops.launches_by_shape) == {"gather_scores", "gather_scores_bf16",
+                                           "gather_scores_q8"}
     assert not any(tops.launches_by_shape.values())
 
 
@@ -429,7 +432,7 @@ def test_gather_constants_match_the_kernel_source():
     assert max(tops.GATHER_ROWS_PER_WARP) == const("kMaxRowsPerWarp")
     assert max(tops.GATHER_Q8_ROWS_PER_WARP) == (32 // lanes) * const("kQ8MaxRowsPerGroup")
     for r in tops.GATHER_ROWS_PER_WARP[:-1]:
-        assert re.search(rf"case {r}: gather_f32_kernel<VEC, {r}>", src)
+        assert re.search(rf"case {r}: gather_rows_kernel<Piece, {r}>", src)
     for r in tops.GATHER_Q8_ROWS_PER_WARP[:-1]:
         rg = r // (32 // lanes)
         assert re.search(rf"case {rg}: gather_q8_kernel<VEC, {rg}>", src)
@@ -471,3 +474,34 @@ def test_gathers_match_pallas_at_the_beam_trip(q8, d, metric):
         got = tops.gather_scores(_t(x), _t(xsq), _t(ids), _t(q), metric=metric)
     assert got.shape == (B, C)
     _assert_scores(got, want)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [128, 100, 8])
+def test_gather_bf16_rows_equal_the_widened_f32_table(d, metric):
+    """The bf16-row gather's plain version gives the f32 plain version's
+    bits on the f32 table of the widened rows (bf16 -> f32 is exact), at the
+    beam trip's B 64 x C 32 with edge ids; and it meets the Pallas kernel
+    run on the bf16 table itself."""
+    M, B, C = 1500, 64, 32
+    rng = np.random.default_rng(d)
+    xb = torch.from_numpy(rng.normal(size=(M, d)).astype(np.float32)).bfloat16()
+    xw = xb.float()
+    xsq = (xw * xw).sum(1)
+    q = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
+    ids = torch.from_numpy(_edge_ids(rng, M, B, C))
+    got = tops.gather_scores(xb, xsq, ids, q, metric=metric)
+    want = tops.gather_scores(xw, xsq, ids, q, metric=metric)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+    jx = jnp.asarray(xw.numpy()).astype(jnp.bfloat16)
+    pallas = jops.gather_scores(jx, jnp.asarray(xsq.numpy()), jnp.asarray(ids.numpy()),
+                                jnp.asarray(q.numpy()), metric=metric)
+    _assert_scores(got, pallas)
+
+
+def test_gather_rejects_other_row_types():
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    q = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="table"):
+        tops.gather_scores(torch.zeros((4, 8), dtype=torch.float16),
+                           torch.zeros(4), ids, q)

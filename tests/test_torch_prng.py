@@ -1,6 +1,8 @@
 """The port's threefry generator against ``jax.random`` (bit-exact), and the
 entry points it drives against ``repro.core.search`` on a JAX-built graph."""
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -92,6 +94,35 @@ def test_gumbel_draws(seed):
     comp = (m.long() << 32) | (0xFFFFFFFF - torch.arange(n))
     got = torch.topk(comp, 16).indices
     assert (got.numpy() == np.asarray(want)).all()
+
+
+_VML_PROBE = """
+import ctypes, os, sys
+import torch
+lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib",
+                               "libtorch_cpu.so"))
+before = lib.vmlGetMode()
+import repro_torch
+print(before, lib.vmlGetMode())
+"""
+
+
+@pytest.mark.skipif(not torch.backends.mkl.is_available(),
+                    reason="torch without MKL computes log with no VML")
+def test_import_settles_the_mkl_vml_dispatch():
+    """Importing the port makes the process's first MKL VML call on the
+    importing thread (``repro_torch/__init__.py``), so that no op split over
+    intra-op threads makes it: VML's lazy CPU-type detection would let a
+    second thread dispatch on a half-written type (the ``test_gumbel_draws``
+    flake). A thread's VML mode gains the FTZ/DAZ-off bits that torch passes
+    at its first VML call."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    out = subprocess.run([sys.executable, "-c", _VML_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    before, after = map(int, out.stdout.split())
+    ftzdaz_off = 0x140000
+    assert not before & ftzdaz_off, "a VML call ran before the port's import"
+    assert after & ftzdaz_off, "importing the port made no VML call"
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import IndexParams, MaintenanceParams, SearchParams
 from repro.core import TieredSession as JTiered
@@ -342,6 +343,24 @@ def test_fan_in_ranks_like_a_stable_argsort():
     want_i, want_s = j_union_topk(ids, sc, 10, device=True)
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_array_equal(got_s, want_s)
+
+
+def test_union_device_route_is_the_sharded_fan_in():
+    """The final pick goes through ``distributed.ann.topk_union`` (JAX's
+    ``device=True``), on the given device or the CPU by default: JAX's
+    device route's ids and scores, on ties, ±0, -inf and duplicate ext ids."""
+    rng = np.random.default_rng(1)
+    ids = rng.permutation(32 * 30).reshape(32, 30).astype(np.int32) % 40
+    ids[rng.random(ids.shape) < 0.1] = NULL
+    sc = rng.integers(-3, 4, ids.shape).astype(np.float32)
+    sc[:, 2], sc[:, 4] = -0.0, 0.0
+    sc[rng.random(sc.shape) < 0.1] = -np.inf
+    for k in (1, 10, 30):
+        want_i, want_s = j_union_topk(ids, sc, k, device=True)
+        for device in (torch.device("cpu"), None):
+            got_i, got_s = _union_topk(ids, sc, k, device=device)
+            np.testing.assert_array_equal(got_i, want_i)
+            assert got_s.tobytes() == np.asarray(want_s).tobytes()
 
 
 # ---------------------------------------------------------------------------

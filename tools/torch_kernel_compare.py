@@ -224,7 +224,7 @@ def compare_gathers(lib, dev, g, failed: list) -> dict:
             lambda i: getattr(ops, name)(table, aux, rot[i], q), n, calls=10)
         row["library_ms"] = chip_smoke.median_ms_rotating(
             lambda i: library_gather(name, table, aux, rot[i], q), n)
-        row["bound_ms"] = chip_smoke.gather_byte_bound_ms(B, C, d, q8)
+        row["bound_ms"] = chip_smoke.gather_byte_bound_ms(B, C, d, d if q8 else 4 * d)
         rpw = ops.gather_rows_per_warp(B * C, sms, q8=q8)
         row["rows_per_warp"], row["blocks"] = rpw, ops.gather_blocks(B * C, rpw)
         row["rotation_sets"] = n
