@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, at SIFT1M scale
     python3 chip_smoke.py --phases build,kernels,maint
     python3 chip_smoke.py --phases build,kernels,sharded --n-base 100000
+    python3 chip_smoke.py --phases build,kernels,models
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
@@ -28,6 +29,11 @@ Phases, each printing one JSON line:
            gather on the bf16 cast of every such table, bit-equal to the
            fp32 kernel on the widened rows and held to its plain version,
            timed beside the fp32 row at B 64 and 4,096 × C 32;
+           score_topk at DLRM retrieval's shape (B 1 in a 64-query tile,
+           k 100, ip, d 64, M 10^6 and 10^6 - 37, both ragged against the
+           128-row tile): exact on integer data, ids equal on Gaussian
+           data wherever the k-th and (k+1)-th scores lie further apart
+           than the tolerance; kernel, plain and matmul + topk times;
   parity   small sessions (GLOBAL, LOCAL, RWALK, MASK with consolidation
            and a refine pass, an armed session that grows, LOCAL_REFERENCE
            and GLOBAL_REFERENCE), a bulk build, the reference engine (equal
@@ -36,7 +42,10 @@ Phases, each printing one JSON line:
            sharded stream (8 shards of 64 slots, f32 and bf16 rows: routed
            inserts, fan-out queries, GLOBAL, LOCAL and MASK deletes,
            consolidate, grow) run on the card and on the CPU must leave
-           byte-equal state and results;
+           byte-equal state and results; the smoke-size DLRM (serve step,
+           top-100 retrieval on integer rows), a dense (qwen3) and an MoE
+           (phi3.5) LM's prefill and three decode steps, from the same
+           weights, must agree: integers equal, fp32 within 1e-4;
   sift1m   the main path: bulk-build a 10^6-vector SIFT-shaped index into
            2^20 slots, stream rounds (2 of the cell's 4 by default, printed
            as ``reduced``) of queries, inserts and GLOBAL deletes
@@ -95,7 +104,27 @@ Phases, each printing one JSON line:
            round bit-equal between the folded fan-out and the per-shard
            loop (whose launches are not counted); rates, consolidate, grow
            and reshard seconds, recall@10 of 1,000 held-out queries against
-           score_topk over every alive row, peak memory, launches.
+           score_topk over every alive row, peak memory, launches;
+  models   cell dlrm-rm2-serve: the full dlrm_rm2.config() (26 tables ×
+           2^20 rows × 64, fp32, drawn on the card from a seed), logits
+           held to a float64 loop reference on 16 samples (padded ids
+           past both table ends), ms a step at B 512 and samples/s at
+           B 262,144, retrieval_cand (1 query × 10^6 item embeddings, k
+           100) through the score_topk kernel held to its plain version,
+           then tools/torch_dlrm_retrieval.py's flow at the example's
+           size (1,500 items inserted) and over 10^6 items (bulk build,
+           top-10 overlap with brute force, 256 GLOBAL expiries, 256
+           inserts, recall@10 of 1,000 users); the LM cells
+           with bf16 serving weights: qwen3-1.7b at full depth (B 4 ×
+           S 2,048 prefill, 32 greedy decode steps) and gemma2-27b,
+           mistral-nemo-12b, phi3.5-moe and llama4-scout at full width
+           with one layer period (at least 2 layers), printed as
+           ``reduced``; every decode step's logits held to forward over the
+           same prefix (bf16: relative L2 ≤ 0.05; the MoE models' check in
+           fp32 with no token dropped, ≤ 1e-3), and the MoE models' bf16
+           forward over the prompt held to fp32 forward at capacity factor
+           1.25 (median relative L2 over every 8th position ≤ 0.05);
+           prefill and decode tokens/s, peak memory, launches.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -572,8 +601,78 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
         2.0 * Bb * N * d / PEAK_FP32_FLOPS,
         ((N * d + N + Bb * d) * 4 + Bb * kb * 8) / PEAK_BYTES_PER_S) * 1e3
     del qb
+    results["score_topk"].update(score_topk_b1_case(torch, kops, kref, dev, g))
     results["score_matrix"] = score_matrix_case(torch, kops, kref, dev, g, xg)
     return results
+
+
+def _topk_gap_ok(gs, gi, ws, wi, k: int) -> int:
+    """Gaussian data against the plain version's top k + 1 (ws, wi): scores
+    within the tolerance, and ids equal wherever the k-th and (k+1)-th
+    scores lie further apart than it (in order, except between scores
+    within it of each other). Returns the rows whose cut was a near-tie."""
+    import torch
+    _close(gs, ws[:, :k])
+    near = 0
+    for r in range(gs.shape[0]):
+        s = ws[r]
+        tol = ATOL + RTOL * abs(float(s[k - 1]))
+        if float(s[k - 1] - s[k]) <= tol:
+            near += 1
+            continue
+        check(set(gi[r].tolist()) == set(wi[r, :k].tolist()),
+              f"score_topk row {r}: ids differ though the k-th score is no near-tie")
+        gap = torch.full((k,), float("inf"), device=s.device)
+        gap[:-1] = s[:k - 1] - s[1:k]
+        apart = (gap > tol) & torch.cat([gap.new_tensor([float("inf")]), gap[:-1]]).gt(tol)
+        check(torch.equal(gi[r][apart], wi[r, :k][apart]),
+              f"score_topk row {r}: well-separated ids out of order")
+    return near
+
+
+# DLRM retrieval_cand: one query against 10^6 item embeddings, k 100 (the
+# retrieval step's), metric ip. k > TOPK_WIDE_MAX_K takes the 64-query tile
+# with one live query; 10^6 and 10^6 - 37 rows end in a ragged row tile.
+RETRIEVAL_M, RETRIEVAL_D, RETRIEVAL_K = 1_000_000, 64, 100
+
+
+def score_topk_b1_case(torch, kops, kref, dev, g) -> dict:
+    """score_topk at the retrieval shape against its plain version: ids and
+    scores identical on integer data, ids equal away from near-ties on
+    Gaussian data; kernel, plain and ``matmul`` + ``topk`` times beside the
+    bytes bound (every row read once)."""
+    M, d, k = RETRIEVAL_M, RETRIEVAL_D, RETRIEVAL_K
+    check(k > kops.TOPK_WIDE_MAX_K and kops.topk_query_tile(k) == 64,
+          "retrieval case: k must take the 64-query tile")
+    xi, qi = _int_data(g, (M, d), dev), _int_data(g, (1, d), dev)
+    xg, qg = torch.randn((M, d), generator=g, device=dev), torch.randn((1, d), generator=g, device=dev)
+    near = 0
+    for m in (M, M - 37):
+        check(m % kops.TOPK_ROWS_PER_TILE != 0, "retrieval case: a ragged row tile")
+        x = xi[:m]
+        gs, gi = kops.score_topk(x, (x * x).sum(1), qi, k, metric="ip")
+        ws, wi = kref.score_topk(x, (x * x).sum(1), qi, k, "ip")
+        check(torch.equal(gi, wi) and torch.equal(gs, ws),
+              f"score_topk B 1 k {k} ip M {m}: integer data ids/scores differ")
+        x = xg[:m]
+        gs, gi = kops.score_topk(x, (x * x).sum(1), qg, k, metric="ip")
+        ws, wi = kref.score_topk(x, (x * x).sum(1), qg, k + 1, "ip")
+        near += _topk_gap_ok(gs, gi, ws, wi, k)
+    err = float((gs - ws[:, :k]).abs().max())
+    xsq = (xg * xg).sum(1)
+    planned = kops.topk_splits(1, M, kops.num_sms(dev), k)
+    # metric ip reads the rows and the query, not xsq (score_topk.cu stages
+    # xsq for l2 only), and writes k scores and ids
+    t_bytes = ((M * d + d) * 4 + k * 8) / PEAK_BYTES_PER_S
+    t_ops = 2.0 * M * d / PEAK_FP32_FLOPS
+    return {"retrieval_b1": dict(
+        ms=median_ms(lambda: kops.score_topk(xg, xsq, qg, k, metric="ip")),
+        plain_ms=median_ms(lambda: kref.score_topk(xg, xsq, qg, k, "ip")),
+        library_ms=median_ms(lambda: torch.topk(qg @ xg.T, k, dim=1)),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        max_abs_err=err, near_tie_cuts=near, splits=planned,
+        shape=dict(B=1, M=M, d=d, k=k, metric="ip"))}
 
 
 def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
@@ -909,6 +1008,72 @@ def run_parity_sharded(device: str) -> dict:
     return out
 
 
+MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-4   # fp32 smoke models, card vs CPU: summation order only
+
+
+def run_parity_models(device: str) -> dict:
+    """The model zoo at smoke size on one device, from weights drawn on the
+    CPU: DLRM's serve step and retrieval (integer rows and query, so the
+    top-100 ids are exact), and a dense (qwen3) and an MoE (phi3.5) LM's
+    prefill and three decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import dlrm as dlrm_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import steps
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def t(a):
+        return torch.as_tensor(a).to(device)
+
+    rng = np.random.default_rng(7)
+    cfg = reg.get_arch("dlrm-rm2").smoke_config()
+    model = dlrm_mod.init_params(cfg, gen(0)).to(device)
+    batch = {"dense": t(rng.normal(size=(64, cfg.n_dense)).astype(np.float32)),
+             "sparse_ids": t(rng.integers(-3, cfg.n_rows + 3, (64, cfg.n_sparse, cfg.nnz))),
+             "sparse_mask": t(rng.random((64, cfg.n_sparse, cfg.nnz)) > 0.3)}
+    out = {"dlrm": {"serve": steps.make_dlrm_serve_step(cfg)(model, batch)}}
+    cands = t(rng.integers(-4, 5, (3000, 8)).astype(np.float32))
+    q = t(rng.integers(-4, 5, (3, 8)).astype(np.float32))
+    out["dlrm"]["retrieval"] = dlrm_mod.retrieval_scores(q, cands, 100)
+    for arch in ("qwen3-1.7b", "phi3.5-moe-42b-a6.6b"):
+        cfg = reg.get_arch(arch).smoke_config()
+        model = tfm.init_params(cfg, gen(1)).to(device)
+        tokens = t(rng.integers(0, cfg.vocab, (2, 21)))
+        logits, cache = steps.make_lm_prefill_step(cfg, 24)(model, {"tokens": tokens})
+        r = {"prefill": logits}
+        for i in range(3):
+            nxt = t(rng.integers(0, cfg.vocab, (2, 1)))
+            r[f"decode{i}"], cache = steps.make_lm_decode_step(cfg)(
+                model, cache, {"tokens": nxt})
+        r["cache_last_layer"] = cache["kv"][-1]
+        out[arch] = r
+    return {k: v.cpu().numpy() for k, v in _flatten(out)}
+
+
+def models_parity() -> dict:
+    """run_parity_models on the card against the CPU: integer outputs
+    equal, float outputs within MODEL_RTOL / MODEL_ATOL."""
+    import numpy as np
+    gpu, cpu = run_parity_models("cuda"), run_parity_models("cpu")
+    check(gpu.keys() == cpu.keys(), "parity: model result keys differ")
+    err = 0.0
+    for k in gpu:
+        a, b = gpu[k], cpu[k]
+        if a.dtype.kind in "iub":
+            check(np.array_equal(a, b), f"parity: model output {k} differs")
+        else:
+            check(bool(np.isfinite(a).all()) and np.allclose(a, b, rtol=MODEL_RTOL,
+                                                              atol=MODEL_ATOL),
+                  f"parity: model output {k} off by {float(np.abs(a - b).max())}")
+            err = max(err, float(np.abs(a - b).max()))
+    return dict(models_compared=len(gpu), models_max_abs_err=err)
+
+
 def _flatten(obj, prefix=""):
     if isinstance(obj, dict):
         for k, v in obj.items():
@@ -948,7 +1113,7 @@ def phase_parity() -> dict:
               f"parity: the {vd} sharded stream did not grow or consolidate")
     check(gpu["sharded.bfloat16.state.vectors"].dtype == np.uint16,
           "parity: the bf16 sharded state does not hold bf16 rows")
-    return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1)
+    return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1, **models_parity())
 
 
 def gather_shape_split(kops) -> dict:
@@ -2299,10 +2464,273 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the model zoo's serving path
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept or None for all, batch, prompt, decode steps): qwen3 at
+# full depth; the others at full width with one layer period (at least 2
+# layers). gemma2's and llama4's prompts pass their local windows (4,096 and
+# 8,192), so the window masks and the kv-block skipping run.
+LM_CELLS = (("qwen3-1.7b", None, 4, 2048, 32),
+            ("mistral-nemo-12b", 2, 2, 2048, 8),
+            ("gemma2-27b", 2, 1, 4608, 8),
+            ("phi3.5-moe-42b-a6.6b", 2, 2, 2048, 8),
+            ("llama4-scout-17b-a16e", 4, 1, 8704, 8))
+# decode logits against forward over the same prefix, as the largest
+# relative L2 error of a step: bf16 rounding of ~2 matmul outputs a layer
+# (2^-9 each) gave 0.006 at 4 layers on the CPU, where a cache one position
+# off gave 0.11-0.39 (tools/torch_models_cpu_checks.py)
+LM_REL_TOL_BF16 = 0.05
+LM_REL_TOL_FP32 = 1e-3
+# an MoE model's bf16 forward over the prompt against fp32 forward at the
+# same capacity factor, as the median relative L2 error of the logits at
+# every 8th position: 0.012-0.039 on the CPU at d_model 256-2,048, where a
+# reference with no token dropped gave 0.07-0.68; a route flipped by bf16
+# rounding moves single positions by up to 0.24, so the median is held
+# (tools/torch_models_cpu_checks.py)
+LM_MOE_MEDIAN_REL_TOL_BF16 = 0.05
+DLRM_SERVE_P99, DLRM_SERVE_BULK = 512, 262_144
+# the DLRM × IPGM flow at 10^6 items, bulk-built as the sift1m phase builds
+# its index; the flow also runs at the example's own size, inserted
+DLRM_FLOW = dict(n_items=1_000_000, n_churn=256, n_queries=1000,
+                 capacity=1 << 20, d_out=32, pool=64, max_steps=128, build="bulk")
+
+
+def dlrm_reference(torch, model, batch):
+    """DLRM's forward in float64 with a loop per sample and field, JAX's
+    index reading written out (negatives from the end, then clamped), and
+    the interaction pairs listed row by row."""
+    tables = model.tables
+    F, R, _ = tables.shape
+    out = []
+    for b in range(batch["dense"].shape[0]):
+        x = batch["dense"][b].double()
+        for i, w in enumerate(model.bot):
+            x = torch.relu(x @ w.double())
+        z = [x]
+        for f in range(F):
+            rows = [tables[f, min(max(i + R if i < 0 else i, 0), R - 1)].double()
+                    for i, m in zip(batch["sparse_ids"][b, f].tolist(),
+                                    batch["sparse_mask"][b, f].tolist()) if m]
+            z.append(sum(rows) / len(rows) if rows else torch.zeros_like(x))
+        inter = [z[i] @ z[j] for i in range(len(z)) for j in range(i)]
+        y = torch.cat([torch.stack(inter), x])
+        for i, w in enumerate(model.top):
+            y = y @ w.double()
+            if i < len(model.top) - 1:
+                y = torch.relu(y)
+        out.append(y[0])
+    return torch.stack(out)
+
+
+def dlrm_cell(torch, kops, kref, dev, flow_cfg: dict) -> dict:
+    """Cell dlrm-rm2-serve: the full config (26 tables × 2^20 rows × 64,
+    fp32) drawn on the card; the serve step at B 512 and 262,144, held to a
+    float64 reference on 16 samples; retrieval_cand through the score_topk
+    kernel, held to its plain version; then the DLRM × IPGM flow of
+    tools/torch_dlrm_retrieval.py at the example's size (1,500 items
+    inserted, the tool's defaults) and with ``flow_cfg`` (DLRM_FLOW)."""
+    import importlib.util
+
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.models import dlrm as dlrm_mod
+    from repro_torch.train import steps
+
+    cfg = dlrm_rm2.config()
+    g = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = dlrm_mod.init_params(cfg, g, dev)
+    sync()
+    out = {"init_s": time.perf_counter() - t0,
+           "table_bytes": model.tables.numel() * model.tables.element_size()}
+
+    def batch(B):
+        shape = (B, cfg.n_sparse, cfg.nnz)
+        return {"dense": torch.randn((B, cfg.n_dense), generator=g, device=dev),
+                "sparse_ids": torch.randint(0, cfg.n_rows, shape, generator=g,
+                                            device=dev, dtype=torch.int32),
+                "sparse_mask": torch.rand(shape, generator=g, device=dev) > 0.3}
+
+    serve = steps.make_dlrm_serve_step(cfg)
+    b = batch(16)
+    b["sparse_ids"][:, :, -1] = torch.tensor([-1, cfg.n_rows + 5], device=dev).repeat(8)[:, None]
+    logits = dlrm_mod.forward(model, b, cfg)
+    ref = dlrm_reference(torch, model, b)
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (16,),
+          "dlrm: serve logits not finite or misshapen")
+    err = float((logits.double() - ref).abs().max())
+    check(err <= 1e-5 + 1e-4 * float(ref.abs().max()),
+          f"dlrm: logits off the float64 reference by {err}")
+    out["ref_max_abs_err"] = err
+    for name, B, runs in (("serve_p99", DLRM_SERVE_P99, 20),
+                          ("serve_bulk", DLRM_SERVE_BULK, 5)):
+        bb = batch(B)
+        p = serve(model, bb)
+        check(p.shape == (B,) and bool(((p >= 0) & (p <= 1)).all()),
+              f"dlrm {name}: probabilities out of [0, 1]")
+        ms = median_ms(lambda: serve(model, bb), runs=runs, warmup=1)
+        out[name] = {"batch": B, "ms_per_step": ms, "samples_per_s": B / ms * 1e3}
+        del bb, p
+    # retrieval_cand: 1 query × 10^6 item embeddings of the bottom tower
+    step = steps.make_dlrm_retrieval_step(cfg)            # k = 100
+    items = dlrm_mod._mlp(model.bot, torch.randn((RETRIEVAL_M, cfg.n_dense), generator=g,
+                                                 device=dev), final_act=True)
+    rb = {"dense": torch.randn((1, cfg.n_dense), generator=g, device=dev),
+          "candidates": items.contiguous()}
+    n0 = kops.launches["score_topk"]
+    s, i = step(model, rb)
+    launched = kops.launches["score_topk"] - n0
+    check(launched == 1, "dlrm retrieval_cand did not launch score_topk once")
+    q = dlrm_mod._mlp(model.bot, rb["dense"], final_act=True)
+    ws, wi = kref.score_topk(items, items.square().sum(1), q, RETRIEVAL_K + 1, "ip")
+    near = _topk_gap_ok(s, i, ws, wi, RETRIEVAL_K)
+    out["retrieval_cand"] = {
+        "n_candidates": RETRIEVAL_M, "k": RETRIEVAL_K,
+        "ms_per_query": median_ms(lambda: step(model, rb)),
+        "score_topk_launches_per_query": launched, "near_tie_cut": near,
+        "max_abs_err": float((s - ws[:, :RETRIEVAL_K]).abs().max())}
+    del items, rb
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location(
+        "torch_dlrm_retrieval", ROOT / "tools" / "torch_dlrm_retrieval.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    for name, kw in (("ipgm_flow_example", {}), ("ipgm_flow", flow_cfg)):
+        flow = tool.run(model=model, device=dev, seed=0, **kw)
+        check(flow["graph_ids_alive"], f"dlrm {name}: a query returned an expired item")
+        check(flow["inserted"] == flow["n_churn"] and flow["alive"] == flow["n_items"],
+              f"dlrm {name}: an insert was refused or the alive count is off")
+        out[name] = flow
+    out["peak_mem_gib"] = peak_gib(torch)
+    return out
+
+
+def _decode_check(torch, tfm, steps, model, cfg, tokens, n_steps: int):
+    """Prefill, ``n_steps`` greedy decode steps, and forward over the prompt
+    and the fed tokens: (prefill s, decode s, the largest relative L2 error
+    of a step's logits against forward's at its position, finite)."""
+    B, S = tokens.shape
+    prefill = steps.make_lm_prefill_step(cfg, S + n_steps)
+    decode = steps.make_lm_decode_step(cfg)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": tokens})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    got, fed = [logits], []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        fed.append(got[-1].argmax(-1, keepdim=True))
+        logits, cache = decode(model, cache, {"tokens": fed[-1]})
+        got.append(logits)
+    sync()
+    decode_s = time.perf_counter() - t0
+    del cache
+    h, _, _ = tfm.forward(model, torch.cat([tokens, *fed], 1), cfg)
+    ref = tfm.logits_from_hidden(model, h[:, S - 1:], cfg)      # [B, steps + 1, V]
+    got = torch.stack(got, 1)
+    rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).amax(0)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(ref).all())
+    return prefill_s, decode_s, [float(r) for r in rel], finite
+
+
+def lm_cell(torch, dev, arch: str, n_layers, B: int, S: int, n_steps: int) -> dict:
+    """One LM at full width with bf16 serving weights: a warm-up prefill,
+    then a timed prefill of B × S and ``n_steps`` greedy decode steps; each
+    decode step's logits held to forward over the same prefix. An MoE
+    model's cache check runs apart in fp32 with no token dropped, and its
+    configured routing and drops in bf16 are held to fp32 (below)."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import steps
+
+    full = reg.get_arch(arch).config_for_shape("prefill_32k")
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    g = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = L.cast_weights_(tfm.init_params(cfg, g, dev), torch.bfloat16)
+    sync()
+    out = {"layers": cfg.n_layers, "of_layers": full.n_layers, "batch": B,
+           "prompt": S, "decode_steps": n_steps, "init_s": time.perf_counter() - t0,
+           "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    steps.make_lm_prefill_step(cfg, S)(model, {"tokens": tokens})      # warm-up
+    prefill_s, decode_s, rel, finite = _decode_check(torch, tfm, steps, model, cfg,
+                                                     tokens, n_steps)
+    check(finite, f"{arch}: non-finite logits")
+    out.update(prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
+               decode_s=decode_s, decode_tokens_per_s=B * n_steps / decode_s,
+               decode_ms_per_step=decode_s / n_steps * 1e3)
+    if cfg.moe is None:
+        out["decode_vs_forward_rel_err"] = rel
+        check(max(rel) <= LM_REL_TOL_BF16,
+              f"{arch}: decode logits off forward by {max(rel)} (bf16 tol {LM_REL_TOL_BF16})")
+    else:
+        # At capacity factor 1.25 a decode step of B tokens has capacity
+        # max(1, int(1.25·B·K) // E) = 1 and drops tokens that the full
+        # forward keeps (JAX's semantics, not a cache fault), and bf16
+        # rounding can flip near-tied routes. So the cache is checked on the
+        # same weights in fp32 with capacity N (capacity factor E / K).
+        m = cfg.moe
+        cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        tok = torch.randint(0, cfg.vocab, (2, 256), generator=g, device=dev)
+        _, _, rel32, finite = _decode_check(torch, tfm, steps, model, cfg32, tok, 4)
+        check(finite, f"{arch}: non-finite fp32 logits")
+        out["decode_vs_forward_rel_err_fp32_no_drop"] = rel32
+        check(max(rel32) <= LM_REL_TOL_FP32,
+              f"{arch}: fp32 decode logits off forward by {max(rel32)}")
+        # the configured routing and drops: bf16 forward over the prompt
+        # (prefill's path and its N = B·S) against fp32 forward at the same
+        # capacity factor
+        cfg_f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        rel = []
+        for c in (cfg, cfg_f32):
+            h, _, _ = tfm.forward(model, tokens, c)
+            rel.append(tfm.logits_from_hidden(model, h[:, 7::8], c).float())
+            del h
+        got, ref = rel
+        rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).flatten()
+        check(bool(torch.isfinite(got).all()), f"{arch}: non-finite bf16 logits")
+        out["prefill_bf16_vs_fp32_rel_err"] = {"median": float(rel.median()),
+                                               "max": float(rel.max())}
+        check(float(rel.median()) <= LM_MOE_MEDIAN_REL_TOL_BF16,
+              f"{arch}: bf16 logits off fp32 forward by a median {float(rel.median())} "
+              f"(tol {LM_MOE_MEDIAN_REL_TOL_BF16})")
+        del got, ref
+    out["peak_mem_gib"] = peak_gib(torch)
+    return out
+
+
+def phase_models(torch, kops, kref, dev, flow_cfg=DLRM_FLOW, lm_cells=LM_CELLS) -> dict:
+    """Cells dlrm-rm2-serve and the LM serving cells (PERF.md §4), with the
+    launch counts of the models path."""
+    t_phase = time.perf_counter()
+    out = {}
+    kops.reset_launches()                       # the models path starts here
+    out["dlrm-rm2-serve"] = dlrm_cell(torch, kops, kref, dev, flow_cfg)
+    torch.cuda.empty_cache()
+    for arch, n_layers, B, S, n_steps in lm_cells:
+        out[arch] = lm_cell(torch, dev, arch, n_layers, B, S, n_steps)
+        torch.cuda.empty_cache()
+    sync()
+    out["launches"] = dict(kops.launches)       # the models path ends here
+    out["gather_launches_by_shape"] = gather_shape_split(kops)
+    out["phase_s"] = time.perf_counter() - t_phase
+    for name in ("gather_scores", "score_topk", "score_matrix"):
+        check(out["launches"][name] > 0, f"kernel {name} was not launched on the models path")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,parity,sift1m,maint,durable,tiered,serve,sharded")
+                    default="build,kernels,parity,sift1m,maint,durable,tiered,serve,sharded,"
+                            "models")
     ap.add_argument("--n-base", type=int, default=1_000_000)
     # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
     # near half its time limit (PERF.md §4)
@@ -2346,7 +2774,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift, maint, durable, tiered, serve, sharded = {}, {}, {}, {}, {}, {}
+    sift, maint, durable, tiered, serve, sharded, models = {}, {}, {}, {}, {}, {}, {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -2427,6 +2855,15 @@ def main(argv=None) -> int:
             sharded = phase_sharded(torch, args.n_base, shard_round)
             emit({"phase": "sharded", "card": smi, **sharded})
             torch.cuda.empty_cache()
+        if "models" in phases:
+            emit({"reduced": {"models": {
+                arch: {"layers": n or "all", "batch": B, "prompt": S, "decode_steps": n_steps,
+                       "of": "prefill_32k B 32 × S 32,768; decode_32k B 128 at S 32,768"
+                             + ("" if n is None else "; every layer")}
+                for arch, n, B, S, n_steps in LM_CELLS}}})
+            models = phase_models(torch, kops, kref, dev)
+            emit({"phase": "models", "card": smi, **models})
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2442,9 +2879,11 @@ def main(argv=None) -> int:
             "launches_tiered": tiered.get("launches", {}).get(name, 0),
             "launches_serve": serve.get("launches", {}).get(name, 0),
             "launches_sharded": sharded.get("launches", {}).get(name, 0),
+            "launches_models": models.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
+            **({"retrieval_b1": row["retrieval_b1"]} if "retrieval_b1" in row else {}),
         })
     emit({"kernels": table})
     print(smi, flush=True)

@@ -1,0 +1,2 @@
+"""Architecture configs of the port (``repro.configs``): the registry, the
+decoder-LM family, DLRM-RM2 and the index itself."""

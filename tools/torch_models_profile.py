@@ -1,0 +1,190 @@
+"""Where the time of the port's model-zoo serving cells goes, on one card.
+
+    python3 tools/torch_models_profile.py
+
+Builds the cells of ``chip_smoke.py``'s models phase that it profiles —
+qwen3-1.7b at full depth with bf16 serving weights, and the full DLRM-RM2
+(26 tables × 2^20 rows × 64, fp32) — and traces one run of each op with
+``torch.profiler``: a prefill of B 4 × S 2,048, one decode step at B 4
+against the prefilled cache, the DLRM serve step at B 512 and at 262,144,
+and the retrieval step (1 query × 10^6 candidates, k 100). For each op it
+prints the wall time of an untraced run (the median of ``UNTRACED_RUNS``)
+and of the traced one, the device's busy time in the trace and its share
+of the untraced wall time (the profiler's own host cost would dilute a
+share of the traced time), the kernel launches, and the kernels that take
+the most device time; for the decode step also the device time by kind
+(matmul, attention over the cache, elementwise and the rest). Last, the
+``score_topk`` call of the retrieval step with its row range forced into
+other split counts than the planner's (``kops.topk_splits`` replaced for
+the sweep), each the median of CUDA-event times.
+
+The card's name and power limit come first. Needs one CUDA device; imports
+nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.configs import dlrm_rm2  # noqa: E402
+from repro_torch.configs import registry as reg  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
+
+# kernel-name fragments by kind (cuBLAS/CUTLASS GEMMs; the reductions and
+# softmax of the attention; element-wise and copy kernels)
+KINDS = (("matmul", ("gemm", "gemv", "sm90_xmma", "cutlass", "splitK", "Kernel2")),
+         ("reduce_softmax", ("reduce", "softmax", "max")),
+         ("elementwise_copy", ("elementwise", "copy", "Copy", "index", "cat", "fill",
+                               "where")))
+
+
+UNTRACED_RUNS = 10
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def kind_of(name: str) -> str:
+    for kind, keys in KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def untraced_ms(fn, runs: int = UNTRACED_RUNS) -> float:
+    """Median wall time of synchronised runs of ``fn``, no profiler on."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def event_ms(fn, runs: int = 20) -> float:
+    """Median CUDA-event time of ``fn`` (after one warm-up call)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def traced(fn) -> dict:
+    """One traced, synchronised run of ``fn`` (after two untraced ones),
+    beside the median untraced wall time that its busy share divides."""
+    for _ in range(2):
+        fn()
+    wall_untraced = untraced_ms(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels, by_kind = [], {}
+    busy, launches = 0.0, 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += dev_us
+            launches += ev.count
+            kernels.append((dev_us, ev.count, ev.key[:90]))
+            k = kind_of(ev.key)
+            by_kind[k] = by_kind.get(k, 0.0) + dev_us / 1e3
+    kernels.sort(reverse=True)
+    return {"wall_ms": wall_untraced, "traced_wall_ms": wall * 1e3,
+            "device_busy_ms": busy / 1e3,
+            "busy_share": busy / 1e3 / wall_untraced if wall_untraced > 0 else None,
+            "kernel_launches": launches, "device_ms_by_kind": by_kind,
+            "top": [{"kernel": k, "device_ms": us / 1e3, "count": c}
+                    for us, c, k in kernels[:8]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_models_profile: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    emit({"card": smi.stdout.strip(), "torch": torch.__version__})
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    # ---- qwen3-1.7b: prefill B 4 × S 2,048, then decode steps at B 4 ----
+    cfg = reg.get_arch("qwen3-1.7b").config_for_shape("prefill_32k")
+    model = L.cast_weights_(tfm.init_params(cfg, g, dev), torch.bfloat16)
+    B, S = 4, 2048
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    prefill = steps.make_lm_prefill_step(cfg, S + 64)
+    decode = steps.make_lm_decode_step(cfg)
+    emit({"op": "qwen3-1.7b prefill B4 S2048", **traced(lambda: prefill(model, {"tokens": tokens}))})
+    _, cache = prefill(model, {"tokens": tokens})
+    nxt = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev)
+    base = cache["len"].clone()
+
+    def one_step():
+        cache["len"] = base.clone()        # every traced step writes position S
+        decode(model, cache, {"tokens": nxt})
+
+    emit({"op": "qwen3-1.7b decode step B4 at 2,048", **traced(one_step)})
+    del model, cache
+    torch.cuda.empty_cache()
+
+    # ---- DLRM-RM2 ----
+    dcfg = dlrm_rm2.config()
+    dlrm = dlrm_mod.init_params(dcfg, g, dev)
+    serve = steps.make_dlrm_serve_step(dcfg)
+    for Bd in (512, 262_144):
+        shape = (Bd, dcfg.n_sparse, dcfg.nnz)
+        batch = {"dense": torch.randn((Bd, dcfg.n_dense), generator=g, device=dev),
+                 "sparse_ids": torch.randint(0, dcfg.n_rows, shape, generator=g, device=dev),
+                 "sparse_mask": torch.rand(shape, generator=g, device=dev) > 0.3}
+        emit({"op": f"dlrm serve B{Bd}", **traced(lambda: serve(dlrm, batch))})
+        del batch
+    items = dlrm_mod._mlp(dlrm.bot, torch.randn((1_000_000, dcfg.n_dense), generator=g,
+                                                device=dev), final_act=True).contiguous()
+    rb = {"dense": torch.randn((1, dcfg.n_dense), generator=g, device=dev), "candidates": items}
+    retrieve = steps.make_dlrm_retrieval_step(dcfg)
+    emit({"op": "dlrm retrieval 1 × 10^6 k100", **traced(lambda: retrieve(dlrm, rb))})
+
+    # ---- score_topk at the retrieval shape by forced split count ----
+    q = dlrm_mod._mlp(dlrm.bot, rb["dense"], final_act=True)
+    csq = items.square().sum(1)
+    k = 100
+    planned = kops.topk_splits(1, items.shape[0], kops.num_sms(dev), k)
+    plan, by_splits = kops.topk_splits, {}
+    try:
+        for n in sorted({1, 8, 32, 132, planned}):
+            kops.topk_splits = lambda *a, n=n: n
+            by_splits[n] = event_ms(lambda: kops.score_topk(items, csq, q, k, metric="ip"))
+    finally:
+        kops.topk_splits = plan
+    emit({"op": "score_topk B1 M10^6 d64 k100 ip by split count", "planned_splits": planned,
+          "ms_by_splits": by_splits})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
