@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels,maint
     python3 chip_smoke.py --phases build,kernels,sharded --n-base 100000
     python3 chip_smoke.py --phases build,kernels,models
+    python3 chip_smoke.py --phases build,gnn
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
@@ -45,7 +46,11 @@ Phases, each printing one JSON line:
            byte-equal state and results; the smoke-size DLRM (serve step,
            top-100 retrieval on integer rows), a dense (qwen3) and an MoE
            (phi3.5) LM's prefill and three decode steps, from the same
-           weights, must agree: integers equal, fp32 within 1e-4;
+           weights, must agree: integers equal, fp32 within 1e-4; and the
+           four GNN archs at their smoke configs plus the sampled GraphSAGE
+           (forward, the loss's gradients, one AdamW step) from the same
+           weights and graphs, within a relative L2 error of 1e-5 (logits,
+           loss), 1e-4 (gradients) and 1e-6 (parameters after the step);
   sift1m   the main path: bulk-build a 10^6-vector SIFT-shaped index into
            2^20 slots, stream rounds (2 of the cell's 4 by default, printed
            as ``reduced``) of queries, inserts and GLOBAL deletes
@@ -124,7 +129,25 @@ Phases, each printing one JSON line:
            fp32 with no token dropped, ≤ 1e-3), and the MoE models' bf16
            forward over the prompt held to fp32 forward at capacity factor
            1.25 (median relative L2 over every 8th position ≤ 0.05);
-           prefill and decode tokens/s, peak memory, launches.
+           prefill and decode tokens/s, peak memory, launches;
+  gnn      the GNN family at full width, weights and random graphs of the
+           published shapes from --seed: gat-cora-full (2,708 nodes, 10,556
+           edges, padded to 3,072 / 10,752), graphsage-reddit-sampled (the
+           CSR build of random_graph(232,965, 492, 602, 41) on the host,
+           NeighborSampler batches of 1,024 targets at fanout 15-10: the
+           sampler's host ms a batch, the copy to the card, steps on one
+           batch and steps that each sample a fresh one),
+           graphsage-products-full (2,449,029 nodes, 61,859,140 edges drawn
+           on the card; forward only, printed as ``reduced``; 64 rows of the
+           logits held to a float64 two-hop reference), gatedgcn-molecule
+           and dimenet-molecule (128 graphs × 30 nodes × 64 edges, no
+           self-loops; DimeNet's triplets from build_triplets, capped at
+           32,768); ms a forward (the median of 10 after 2, of 3 for
+           products), ms a train step (the median of 10 AdamW steps after
+           2, the loss falling over them), nodes and edges per second, peak
+           memory; each full-width forward and the sampled forward held to
+           the CPU's forward of the same weights and inputs (relative L2
+           error 1e-4); the path launches none of the kernels.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -136,6 +159,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1113,7 +1137,8 @@ def phase_parity() -> dict:
               f"parity: the {vd} sharded stream did not grow or consolidate")
     check(gpu["sharded.bfloat16.state.vectors"].dtype == np.uint16,
           "parity: the bf16 sharded state does not hold bf16 rows")
-    return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1, **models_parity())
+    return dict(compared=len(gpu), cuda_s=t1 - t0, cpu_s=t2 - t1, **models_parity(),
+                **gnn_parity())
 
 
 def gather_shape_split(kops) -> dict:
@@ -2726,11 +2751,424 @@ def phase_models(torch, kops, kref, dev, flow_cfg=DLRM_FLOW, lm_cells=LM_CELLS) 
     return out
 
 
+# ---------------------------------------------------------------------------
+# the GNN family: forward and train steps
+# ---------------------------------------------------------------------------
+
+GNN_WARMUP, GNN_STEPS, GNN_FORWARDS = 2, 10, 3
+# the cells' AdamW: a short warm-up, so the loss falls within the timed steps;
+# at 1e-3 GatedGCN's and DimeNet's losses on random labels and targets jumped
+# between steps (CPU rehearsal at the molecule cell)
+GNN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+# the reddit-scale graph of graphsage-reddit-sampled (random_graph(232,965,
+# 492, 602, 41): 114.6 M edges, Reddit's size) and ogbn-products' sizes
+REDDIT = dict(n_nodes=232_965, degree=492, d_feat=602, n_classes=41)
+PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140)
+GNN_SAMPLER_BATCHES = 5         # batches whose host time is taken
+PRODUCTS_CHECK_NODES = 64       # products logits held to a float64 reference
+# card against CPU, as the largest relative L2 error of an array: the
+# summation order of index_add_'s atomics moves fp32 sums by ~1e-7
+GNN_CARD_CPU_REL_TOL = 1e-4
+GNN_PARITY_REL_TOL = {"logits": 1e-5, "loss": 1e-5, "grads": 1e-4, "params": 1e-6}
+
+
+def _pad_to(a, n: int):
+    import numpy as np
+    return np.concatenate([a, np.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
+
+
+def padded_graph(rng, dev, *, n_graphs: int, nodes: int, edges: int, d_feat: int,
+                 n_classes: int):
+    """``n_graphs`` random graphs of ``nodes`` nodes and ``edges`` edges
+    each, without self-loops (drawn as tests/test_models_smoke.py draws
+    them), merged and padded to 512 multiples: padded edges 0 → 0 and
+    padded nodes masked. Features, 3-D positions, edge attributes, labels and
+    per-graph targets are normal draws. → (GraphData, real senders, real
+    receivers)."""
+    import numpy as np
+
+    from repro_torch.configs.gnn_common import D_EDGE, _pad512
+    from repro_torch.models.gnn.common import make_graph
+
+    N, E = n_graphs * nodes, n_graphs * edges
+    Np, Ep = _pad512(N), _pad512(E)
+    s = rng.integers(0, nodes, (n_graphs, edges))
+    r = (s + 1 + rng.integers(0, nodes - 1, (n_graphs, edges))) % nodes
+    off = (np.arange(n_graphs) * nodes)[:, None]
+    s, r = (s + off).ravel().astype(np.int32), (r + off).ravel().astype(np.int32)
+    g = make_graph(
+        _pad_to(rng.normal(size=(N, d_feat)).astype(np.float32), Np),
+        _pad_to(s, Ep), _pad_to(r, Ep),
+        node_mask=np.arange(Np) < N, edge_mask=np.arange(Ep) < E,
+        labels=_pad_to(rng.integers(0, n_classes, N).astype(np.int32), Np),
+        label_mask=np.arange(Np) < N,
+        positions=_pad_to(rng.normal(size=(N, 3)).astype(np.float32) * 1.5, Np),
+        edge_attr=_pad_to(rng.normal(size=(E, D_EDGE)).astype(np.float32), Ep),
+        graph_ids=_pad_to(np.repeat(np.arange(n_graphs, dtype=np.int32), nodes), Np),
+        targets=rng.normal(size=n_graphs).astype(np.float32), n_graphs=n_graphs,
+        device=dev)
+    return g, s, r
+
+
+def reset_peak(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def host_ms(fn, runs: int, warmup: int) -> tuple[float, list]:
+    """Median wall time of ``runs`` calls of ``fn`` after ``warmup``, each
+    ended by a synchronise; and every result."""
+    outs = []
+    for _ in range(warmup):
+        outs.append(fn())
+    times = []
+    for _ in range(runs):
+        sync()
+        t = time.perf_counter()
+        outs.append(fn())
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2], outs
+
+
+def _rel_err(torch, got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def gnn_model(arch_id: str, cfg, seed: int, dev):
+    import torch
+
+    from repro_torch.configs.gnn_common import GNN_ARCH
+    from repro_torch.models.gnn import dimenet, gat, gatedgcn, graphsage
+    mod = {"graphsage": graphsage, "gat": gat, "gatedgcn": gatedgcn,
+           "dimenet": dimenet}[GNN_ARCH[arch_id]]
+    return mod.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+def train_timed(torch, step, model, batch, runs: int = GNN_STEPS,
+                warmup: int = GNN_WARMUP) -> dict:
+    """``warmup`` + ``runs`` train steps on one batch: the median step time,
+    the timed steps' losses (finite, the last below the first), grad_norm
+    and lr of the last."""
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    state = [adamw_init(model.leaves())]
+
+    def one():
+        _, state[0], m = step(model, state[0], batch)
+        return m
+
+    ms, metrics = host_ms(one, runs, warmup)
+    losses = [float(m["loss"]) for m in metrics[warmup:]]
+    check(all(math.isfinite(v) for v in losses), "gnn: a non-finite loss")
+    check(losses[-1] < losses[0], f"gnn: the loss did not fall over the timed steps {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.leaves()),
+          "gnn: non-finite parameters after the steps")
+    return {"ms_per_step": ms, "losses": losses, "grad_norm": float(metrics[-1]["grad_norm"]),
+            "lr": float(metrics[-1]["lr"])}
+
+
+def gnn_full_cell(torch, dev, arch_id: str, shape: str, seed: int, **graph) -> dict:
+    """One full-graph cell at full width: forward (median of GNN_STEPS after
+    GNN_WARMUP) held to the CPU's forward of the same weights and graph,
+    then GNN_WARMUP + GNN_STEPS train steps."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import registry as reg
+    from repro_torch.configs.gnn_common import GNN_ARCH, max_triplets
+    from repro_torch.models.gnn.dimenet import build_triplets
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig
+
+    arch = GNN_ARCH[arch_id]
+    cfg = reg.get_arch(arch_id).config_for_shape(shape)
+    reset_peak(torch)
+    rng = np.random.default_rng(seed)
+    g, s, r = padded_graph(rng, dev, d_feat=cfg.d_in,
+                           n_classes=getattr(cfg, "n_classes", 2), **graph)
+    batch = {"graph": g}
+    out = {"config": shape, "nodes": int(g.node_mask.sum()), "edges": int(g.edge_mask.sum()),
+           "padded_nodes": g.n_nodes, "padded_edges": g.n_edges}
+    if arch == "dimenet":
+        t = time.perf_counter()
+        trip = build_triplets(s, r, len(s), max_triplets(shape))
+        out["triplets_build_s"] = time.perf_counter() - t
+        out["triplets"] = int(trip["mask"].sum())
+        batch["triplets"] = steps.batch_to(trip, dev)
+    model = gnn_model(arch_id, cfg, seed, dev)
+    model_cpu = copy.deepcopy(model).to("cpu")
+    fwd = steps.make_gnn_forward(arch, cfg, dev)
+    ms, outs = host_ms(lambda: fwd(model, batch), GNN_STEPS, GNN_WARMUP)
+    logits = outs[-1]
+    check(bool(torch.isfinite(logits).all()), f"{arch_id}: non-finite forward")
+    want = steps.make_gnn_forward(arch, cfg, "cpu")(model_cpu, steps.batch_to(batch, "cpu"))
+    err = _rel_err(torch, logits, want)
+    check(err <= GNN_CARD_CPU_REL_TOL, f"{arch_id}: forward off the CPU's by {err}")
+    out.update(forward_ms=ms, nodes_per_s_forward=out["nodes"] / ms * 1e3,
+               edges_per_s_forward=out["edges"] / ms * 1e3, output_shape=list(logits.shape),
+               card_vs_cpu_rel_err=err)
+    del model_cpu, want, outs
+    step = steps.make_gnn_train_step(arch, cfg, AdamWConfig(**GNN_OPT), dev)
+    tr = train_timed(torch, step, model, batch)
+    out["train"] = dict(tr, nodes_per_s=out["nodes"] / tr["ms_per_step"] * 1e3,
+                        edges_per_s=out["edges"] / tr["ms_per_step"] * 1e3)
+    out["peak_mem_gib"] = peak_gib(torch)
+    return out
+
+
+def gnn_sampled_cell(torch, dev, seed: int, reddit: dict) -> dict:
+    """graphsage-reddit-sampled: the CSR build of the reddit-scale graph on
+    the host, the sampler's host time a batch, the batch's copy to the
+    card, forward_sampled (held to the CPU's) and train steps on one batch,
+    then steps that each sample a fresh batch first."""
+    import copy
+
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.configs.gnn_common import BATCH_NODES
+    from repro_torch.data.graph_sampler import NeighborSampler, random_graph
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = graphsage_reddit.config_for_shape("minibatch_lg")
+    reset_peak(torch)
+    t = time.perf_counter()
+    csr = random_graph(reddit["n_nodes"], reddit["degree"], reddit["d_feat"],
+                       reddit["n_classes"], seed=seed)
+    out = {"config": "minibatch_lg", "nodes": csr.n_nodes, "edges": int(csr.indices.shape[0]),
+           "fanout": list(cfg.sample_sizes), "batch_nodes": BATCH_NODES,
+           "csr_build_s": time.perf_counter() - t}
+    sampler = NeighborSampler(csr, cfg.sample_sizes, BATCH_NODES, seed=seed)
+    sample_ms, host = host_ms(sampler.next_batch, GNN_SAMPLER_BATCHES, 0)
+    out["sampler_ms_per_batch"] = sample_ms
+    out["sampled_nodes_per_batch"] = int(sum(m.sum() for m in host[0]["blocks"]["masks"]))
+    copy_ms, dev_batches = host_ms(lambda: steps.batch_to(host[0], dev), 3, 0)
+    out["host_to_device_ms"] = copy_ms
+    batch = dev_batches[-1]
+    model = gnn_model("graphsage-reddit", cfg, seed, dev)
+    model_cpu = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        ms, outs = host_ms(lambda: graphsage.forward_sampled(model, batch["blocks"], cfg),
+                           GNN_STEPS, GNN_WARMUP)
+        want = graphsage.forward_sampled(model_cpu, steps.batch_to(host[0], "cpu")["blocks"], cfg)
+    check(bool(torch.isfinite(outs[-1]).all()) and tuple(outs[-1].shape) == (BATCH_NODES,
+                                                                              cfg.n_classes),
+          "graphsage-reddit-sampled: forward not finite or misshapen")
+    err = _rel_err(torch, outs[-1], want)
+    check(err <= GNN_CARD_CPU_REL_TOL, f"graphsage-reddit-sampled: forward off the CPU's by {err}")
+    out.update(forward_ms=ms, targets_per_s_forward=BATCH_NODES / ms * 1e3,
+               card_vs_cpu_rel_err=err)
+    del model_cpu, outs, want
+    step = steps.make_gnn_train_step("graphsage", cfg, AdamWConfig(**GNN_OPT), dev)
+    tr = train_timed(torch, step, model, batch)
+    out["train_one_batch"] = dict(tr, targets_per_s=BATCH_NODES / tr["ms_per_step"] * 1e3)
+    # the pipeline as training runs it: sample on the host, copy, step
+    state = [adamw_init(model.leaves())]
+
+    def sampled_step():
+        _, state[0], m = step(model, state[0], sampler.next_batch())
+        return m
+    ms, metrics = host_ms(sampled_step, 3, 0)
+    check(all(bool(torch.isfinite(m["loss"])) for m in metrics),
+          "graphsage-reddit-sampled: a non-finite loss on a fresh batch")
+    out["train_fresh_batches"] = {"ms_per_step": ms, "targets_per_s": BATCH_NODES / ms * 1e3,
+                                  "sampler_share": sample_ms / ms}
+    out["peak_mem_gib"] = peak_gib(torch)
+    return out
+
+
+def sage_rows_reference(torch, model, g, nodes):
+    """GraphSAGE's full-graph logits of ``nodes`` in float64, from their
+    two-hop in-neighbourhood alone (the layers' means written out over the
+    edges that reach each node)."""
+    s, r, m = g.senders.long(), g.receivers.long(), g.edge_mask
+    N = g.n_nodes
+
+    def layer(lp, h, h_ids, targets, relu):
+        pos = torch.full((N,), -1, dtype=torch.long, device=h.device)
+        pos[h_ids] = torch.arange(h_ids.shape[0], device=h.device)
+        tpos = torch.full((N,), -1, dtype=torch.long, device=h.device)
+        tpos[targets] = torch.arange(targets.shape[0], device=h.device)
+        sel = m & (tpos[r] >= 0)
+        es, er = s[sel], r[sel]
+        tot = torch.zeros((targets.shape[0], h.shape[1]), dtype=h.dtype, device=h.device)
+        tot.index_add_(0, tpos[er], h[pos[es]])
+        cnt = torch.zeros(targets.shape[0], dtype=h.dtype, device=h.device)
+        cnt.index_add_(0, tpos[er], torch.ones_like(er, dtype=h.dtype))
+        out = h[pos[targets]] @ lp.w_self.double() + (tot / cnt.clamp(min=1)[:, None]) @ lp.w_nbr.double()
+        out = torch.relu(out) if relu else out
+        return out * g.node_mask[targets, None]
+
+    l1, l2 = model.layers[0], model.layers[1]
+    sel = m & torch.isin(r, nodes)
+    hop1 = torch.unique(torch.cat([nodes, s[sel]]))
+    sel = m & torch.isin(r, hop1)
+    hop2 = torch.unique(torch.cat([hop1, s[sel]]))
+    h1 = layer(l1, g.x[hop2].double(), hop2, hop1, True)
+    return layer(l2, h1, hop1, nodes, False)
+
+
+def products_graph(torch, dev, gen, products: dict, d_feat: int):
+    """An ogbn-products-sized graph drawn on ``dev`` from ``gen``: uniform
+    random edges and normal features, padded to 512 multiples (padded edges
+    0 → 0 and padded nodes masked); no edge attributes."""
+    from repro_torch.configs.gnn_common import _pad512
+    from repro_torch.models.gnn.common import GraphData
+
+    N, E = products["n_nodes"], products["n_edges"]
+    Np, Ep = _pad512(N), _pad512(E)
+
+    def ids():
+        a = torch.zeros(Ep, dtype=torch.int32, device=dev)
+        a[:E] = torch.randint(0, N, (E,), generator=gen, device=dev, dtype=torch.int32)
+        return a
+
+    x = torch.zeros((Np, d_feat), device=dev)
+    x[:N] = torch.randn((N, d_feat), generator=gen, device=dev)
+    return GraphData(
+        x=x, senders=ids(), receivers=ids(),
+        node_mask=torch.arange(Np, device=dev) < N, edge_mask=torch.arange(Ep, device=dev) < E,
+        labels=torch.zeros(Np, dtype=torch.int32, device=dev),
+        label_mask=torch.zeros(Np, dtype=torch.bool, device=dev),
+        positions=torch.zeros((Np, 3), device=dev),
+        edge_attr=torch.zeros((Ep, 0), device=dev),
+        graph_ids=torch.zeros(Np, dtype=torch.int32, device=dev),
+        targets=torch.zeros(1, device=dev))
+
+
+def gnn_products_cell(torch, dev, seed: int, products: dict) -> dict:
+    """graphsage-products-full: the graph drawn on the card
+    (:func:`products_graph`), GNN_FORWARDS forwards after GNN_WARMUP,
+    PRODUCTS_CHECK_NODES rows of the logits held to a float64 reference."""
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.train import steps
+
+    cfg = graphsage_reddit.config_for_shape("ogb_products")
+    reset_peak(torch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = time.perf_counter()
+    g = products_graph(torch, dev, gen, products, cfg.d_in)
+    sync()
+    N, E = products["n_nodes"], products["n_edges"]
+    out = {"config": "ogb_products", "nodes": N, "edges": E, "padded_nodes": g.n_nodes,
+           "padded_edges": g.n_edges, "graph_build_s": time.perf_counter() - t}
+    model = gnn_model("graphsage-reddit", cfg, seed, dev)
+    fwd = steps.make_gnn_forward("graphsage", cfg, dev)
+    ms, outs = host_ms(lambda: fwd(model, {"graph": g}), GNN_FORWARDS, GNN_WARMUP)
+    logits = outs[-1]
+    del outs
+    check(tuple(logits.shape) == (g.n_nodes, cfg.n_classes)
+          and bool(torch.isfinite(logits).all()),
+          "graphsage-products-full: logits not finite or misshapen")
+    nodes = torch.unique(torch.randint(0, N, (PRODUCTS_CHECK_NODES,), generator=gen,
+                                       device=dev))
+    with torch.no_grad():
+        ref = sage_rows_reference(torch, model, g, nodes)
+    got = logits[nodes].double()
+    err = float((got - ref).abs().max())
+    check(err <= 1e-5 + 1e-4 * float(ref.abs().max()),
+          f"graphsage-products-full: logits off the float64 reference by {err}")
+    out.update(forward_ms=ms, nodes_per_s_forward=N / ms * 1e3, edges_per_s_forward=E / ms * 1e3,
+               ref_rows=int(ref.shape[0]), ref_max_abs_err=err,
+               peak_mem_gib=peak_gib(torch))
+    return out
+
+
+def phase_gnn(torch, kops, seed: int = 0, reddit=REDDIT, products=PRODUCTS,
+              device: str = "cuda") -> dict:
+    """The gnn phase's five cells (PERF.md §4), with the launch counts of
+    the GNN path (its message passing reaches no kernel of the port)."""
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    kops.reset_launches()                       # the GNN path starts here
+    out = {"gat-cora-full": gnn_full_cell(torch, dev, "gat-cora", "full_graph_sm", seed,
+                                          n_graphs=1, nodes=2_708, edges=10_556),
+           "graphsage-reddit-sampled": gnn_sampled_cell(torch, dev, seed, reddit),
+           "graphsage-products-full": gnn_products_cell(torch, dev, seed, products)}
+    for arch_id in ("gatedgcn", "dimenet"):
+        out[f"{arch_id}-molecule"] = gnn_full_cell(torch, dev, arch_id, "molecule", seed,
+                                                   n_graphs=128, nodes=30, edges=64)
+    sync()
+    out["launches"] = dict(kops.launches)       # the GNN path ends here
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_parity_gnn(device: str) -> dict:
+    """The four GNN archs at their smoke configs and the sampled GraphSAGE,
+    from weights drawn on the CPU: forward, the loss's gradients, and one
+    AdamW train step (loss, parameters after it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry as reg
+    from repro_torch.configs.gnn_common import GNN_ARCH
+    from repro_torch.data.graph_sampler import NeighborSampler, random_graph
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.models.gnn.dimenet import build_triplets
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    opt = AdamWConfig(**GNN_OPT)
+    out = {}
+    cases = [(a, a) for a in GNN_ARCH] + [("graphsage-reddit", "graphsage-sampled")]
+    for i, (arch_id, name) in enumerate(cases):
+        arch, cfg = GNN_ARCH[arch_id], reg.get_arch(arch_id).smoke_config()
+        rng = np.random.default_rng(11 + i)
+        if name == "graphsage-sampled":
+            csr = random_graph(300, 6, cfg.d_in, cfg.n_classes, seed=i)
+            batch = steps.batch_to(NeighborSampler(csr, cfg.sample_sizes, 16, seed=i)
+                                   .next_batch(), device)
+        else:
+            g, s, r = padded_graph(rng, device, n_graphs=2, nodes=20, edges=60,
+                                   d_feat=cfg.d_in, n_classes=getattr(cfg, "n_classes", 2))
+            batch = {"graph": g}
+            if arch == "dimenet":
+                batch["triplets"] = steps.batch_to(build_triplets(s, r, len(s), 512), device)
+        model = gnn_model(arch_id, cfg, i, "cpu").to(device)
+        res = {}
+        if name == "graphsage-sampled":
+            with torch.no_grad():
+                res["logits"] = graphsage.forward_sampled(model, batch["blocks"], cfg)
+        else:
+            res["logits"] = steps.make_gnn_forward(arch, cfg, device)(model, batch)
+        loss, _ = steps.gnn_loss(model, batch, arch, cfg)
+        grads = torch.autograd.grad(loss, list(model.leaves()))
+        res["grads"] = {str(j): gr for j, gr in enumerate(grads)}
+        _, _, m = steps.make_gnn_train_step(arch, cfg, opt, device)(
+            model, adamw_init(model.leaves()), batch)
+        res["loss"] = m["loss"]
+        res["params"] = {str(j): p.detach() for j, p in enumerate(model.leaves())}
+        out[name] = res
+    return {k: v.cpu() for k, v in _flatten(out)}
+
+
+def gnn_parity() -> dict:
+    """run_parity_gnn on the card against the CPU: the largest relative L2
+    error of logits, loss, gradients and parameters after the step, each
+    within GNN_PARITY_REL_TOL."""
+    import torch
+    gpu, cpu = run_parity_gnn("cuda"), run_parity_gnn("cpu")
+    check(gpu.keys() == cpu.keys(), "parity: GNN result keys differ")
+    worst = dict.fromkeys(GNN_PARITY_REL_TOL, 0.0)
+    for k in gpu:
+        kind = k.split(".")[1]
+        check(bool(torch.isfinite(gpu[k]).all()), f"parity: GNN {k} not finite")
+        worst[kind] = max(worst[kind], _rel_err(torch, gpu[k], cpu[k]))
+    for kind, tol in GNN_PARITY_REL_TOL.items():
+        check(worst[kind] <= tol, f"parity: GNN {kind} off the CPU's by {worst[kind]} "
+                                  f"(tol {tol})")
+    return {"gnn_compared": len(gpu), "gnn_max_rel_err": worst}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,parity,sift1m,maint,durable,tiered,serve,sharded,"
-                            "models")
+                            "models,gnn")
     ap.add_argument("--n-base", type=int, default=1_000_000)
     # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
     # near half its time limit (PERF.md §4)
@@ -2739,7 +3177,8 @@ def main(argv=None) -> int:
     ap.add_argument("--maint-steps", type=int, default=2)
     ap.add_argument("--maint-queries", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the serve phase's arrival times")
+                    help="seed of the serve phase's arrival times and the gnn phase's "
+                         "graphs and weights")
     # the durable phase's child process (started by the phase itself)
     ap.add_argument("--durable-child", help=argparse.SUPPRESS)
     ap.add_argument("--child-capacity", type=int, help=argparse.SUPPRESS)
@@ -2774,7 +3213,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift, maint, durable, tiered, serve, sharded, models = {}, {}, {}, {}, {}, {}, {}
+    sift, maint, durable, tiered, serve, sharded, models, gnn = {}, {}, {}, {}, {}, {}, {}, {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -2864,6 +3303,13 @@ def main(argv=None) -> int:
             models = phase_models(torch, kops, kref, dev)
             emit({"phase": "models", "card": smi, **models})
             torch.cuda.empty_cache()
+        if "gnn" in phases:
+            emit({"reduced": {"gnn": {"graphsage-products-full": {
+                "train_step": "cut: forward only; JAX shards this cell's train step over a "
+                              "mesh (src/repro/launch/sharding.py:141-152)"}}}})
+            gnn = phase_gnn(torch, kops, args.seed)
+            emit({"phase": "gnn", "card": smi, **gnn})
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2880,6 +3326,7 @@ def main(argv=None) -> int:
             "launches_serve": serve.get("launches", {}).get(name, 0),
             "launches_sharded": sharded.get("launches", {}).get(name, 0),
             "launches_models": models.get("launches", {}).get(name, 0),
+            "launches_gnn": gnn.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

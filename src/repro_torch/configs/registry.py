@@ -1,9 +1,9 @@
 """Architecture registry of the port: arch-id → (configs, shapes, input specs).
 
-A copy of ``repro.configs.registry`` for the architectures the port has
-(the decoder LMs, DLRM-RM2 and the index itself; the GNN family is not
-ported yet). ``input_specs`` returns :class:`TensorSpec` objects, shape
-and torch dtype, and allocates nothing.
+A copy of ``repro.configs.registry``: the decoder LMs, the GNN family,
+DLRM-RM2 and the index itself, every arch JAX's registry names.
+``input_specs`` returns :class:`TensorSpec` objects, shape and torch
+dtype, and allocates nothing.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ class ShapeCell:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                  # lm | recsys | ipgm
+    family: str                  # lm | gnn | recsys | ipgm
     config_for_shape: Callable[[str], Any]
     smoke_config: Callable[[], Any]
     shapes: dict[str, ShapeCell]
@@ -78,8 +78,12 @@ def _ensure_loaded() -> None:
         return
     # import side-effect registration
     from repro_torch.configs import (  # noqa: F401
+        dimenet as _a,
         dlrm_rm2 as _b,
+        gat_cora as _c,
+        gatedgcn as _d,
         gemma2_27b as _e,
+        graphsage_reddit as _f,
         ipgm_ann as _k,
         llama4_scout as _g,
         mistral_nemo_12b as _h,

@@ -1,1 +1,2 @@
-"""Synthetic datasets (a copy of ``repro.data.synthetic``'s generator)."""
+"""Data of the port: synthetic datasets, the update workload and the GNN
+neighbour sampler (copies of ``repro.data``'s generators)."""

@@ -1,6 +1,6 @@
 """Where the time of the port's model-zoo serving cells goes, on one card.
 
-    python3 tools/torch_models_profile.py
+    python3 tools/torch_models_profile.py [--ops serving,gnn]
 
 Builds the cells of ``chip_smoke.py``'s models phase that it profiles —
 qwen3-1.7b at full depth with bf16 serving weights, and the full DLRM-RM2
@@ -18,18 +18,29 @@ the most device time; for the decode step also the device time by kind
 other split counts than the planner's (``kops.topk_splits`` replaced for
 the sweep), each the median of CUDA-event times.
 
+``--ops gnn`` traces the gnn phase's two large GraphSAGE ops: a train step
+of graphsage-reddit-sampled on a batch already on the card, the same step
+fed a fresh batch (the sampler's host time and the copy to the card
+included), and the graphsage-products-full forward. The sampled ops draw
+their batches from a graph of Reddit's 232,965 nodes at degree 32 (a
+step's shapes are the batch's, 1,024 targets at fanout 15-10, whatever
+the degree), so the profile skips the cell's 40 s CSR build.
+
 The card's name and power limit come first. Needs one CUDA device; imports
 nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
@@ -122,7 +133,47 @@ def traced(fn) -> dict:
                     for us, c, k in kernels[:8]]}
 
 
-def main() -> int:
+def profile_gnn(dev) -> None:
+    """The GraphSAGE sampled train step (batch on the card; fresh batch
+    from the sampler) and the ogbn-products forward."""
+    import chip_smoke
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.data.graph_sampler import NeighborSampler, random_graph
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = graphsage_reddit.config_for_shape("minibatch_lg")
+    csr = random_graph(232_965, 32, cfg.d_in, cfg.n_classes, seed=0)
+    sampler = NeighborSampler(csr, cfg.sample_sizes, 1024, seed=0)
+    model = graphsage.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    step = steps.make_gnn_train_step("graphsage", cfg, AdamWConfig(**chip_smoke.GNN_OPT), dev)
+    state = [adamw_init(model.leaves())]
+    batch = steps.batch_to(sampler.next_batch(), dev)
+
+    def train(b):
+        _, state[0], m = step(model, state[0], b)
+        return m
+
+    emit({"op": "graphsage-reddit-sampled train step, batch on the card",
+          **traced(lambda: train(batch))})
+    emit({"op": "graphsage-reddit-sampled train step, fresh batch (sampler + copy + step)",
+          **traced(lambda: train(sampler.next_batch()))})
+    del model, state, batch, csr, sampler
+    torch.cuda.empty_cache()
+    pcfg = graphsage_reddit.config_for_shape("ogb_products")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = chip_smoke.products_graph(torch, dev, gen, chip_smoke.PRODUCTS, pcfg.d_in)
+    pmodel = graphsage.init_params(pcfg, gen, dev)
+    fwd = steps.make_gnn_forward("graphsage", pcfg, dev)
+    emit({"op": "graphsage-products-full forward, 2,449,029 nodes, 61,859,140 edges",
+          **traced(lambda: fwd(pmodel, {"graph": g}))})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ops", default="serving,gnn",
+                    help="comma-separated: serving (the models phase's ops), gnn")
+    ops = set(ap.parse_args(argv).ops.split(","))
     if not torch.cuda.is_available():
         print("torch_models_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -130,6 +181,14 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     emit({"card": smi.stdout.strip(), "torch": torch.__version__})
+    if "gnn" in ops:
+        profile_gnn(dev)
+    if "serving" in ops:
+        profile_serving(dev)
+    return 0
+
+
+def profile_serving(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(0)
 
     # ---- qwen3-1.7b: prefill B 4 × S 2,048, then decode steps at B 4 ----
@@ -183,7 +242,6 @@ def main() -> int:
         kops.topk_splits = plan
     emit({"op": "score_topk B1 M10^6 d64 k100 ip by split count", "planned_splits": planned,
           "ms_by_splits": by_splits})
-    return 0
 
 
 if __name__ == "__main__":
