@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,sharded --n-base 100000
     python3 chip_smoke.py --phases build,kernels,models
     python3 chip_smoke.py --phases build,gnn
+    python3 chip_smoke.py --phases build,train
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
@@ -147,7 +148,25 @@ Phases, each printing one JSON line:
            2, the loss falling over them), nodes and edges per second, peak
            memory; each full-width forward and the sampled forward held to
            the CPU's forward of the same weights and inputs (relative L2
-           error 1e-4); the path launches none of the kernels.
+           error 1e-4); the path launches none of the kernels;
+  train    the LM and DLRM training path: the five LM smoke configs and the
+           DLRM smoke config from the same weights and numpy batches, the
+           loss's gradients and one AdamW step on the card against the CPU
+           (relative L2 within 1e-5 for loss and grad_norm, 1e-4 for the
+           gradients, 1e-6 for the parameters after the step); qwen3-1.7b's
+           train_4k config at full width (28 layers, d 2,048, vocab 151,936,
+           bf16 compute, fp32 masters and AdamW state) at S 4,096 and the
+           largest B that fits the card (from the peak memory of one step at
+           B 1 and B 2; printed as ``reduced``), 1 + 5 steps on one repeated
+           TokenStream batch: every loss, ms a step, tokens/s, peak memory,
+           the last loss below the first; DLRM-RM2's train_batch at full size
+           (26 tables × 2^20 × 64, B 65,536, dense table gradients), the first
+           step's loss within 1e-5 of a float64 CPU forward of the same
+           parameters and batch, then 1 + 5 steps: losses falling, parameters
+           finite, ms a step, samples/s, peak memory; train_lm at qwen3's
+           smoke config on the card, 30 steps straight against 20 steps, a
+           simulated preemption and a resume for the last 10 (final losses
+           within 1e-4 relative); the path launches none of the kernels.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -3164,11 +3183,309 @@ def gnn_parity() -> dict:
     return {"gnn_compared": len(gpu), "gnn_max_rel_err": worst}
 
 
+# ---------------------------------------------------------------------------
+# train phase: the LM and DLRM train steps and the training driver
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen3-1.7b", "mistral-nemo-12b", "gemma2-27b", "phi3.5-moe-42b-a6.6b",
+            "llama4-scout-17b-a16e")
+# the parity entries' AdamW: the gnn phase's, at eps 1e-4. At eps 1e-8 a
+# summation-order difference δ in a gradient near eps moves its element by
+# up to lr·δ/(4·eps), and one whose gradient is below δ flips sign (2·lr),
+# so the parameters after a step would measure the gradients' noise, not
+# the step (tests/test_torch_train.py shows it against JAX)
+TRAIN_PARITY_OPT = dict(GNN_OPT, eps=1e-4)
+# the LM entries' norm scales are drawn from N(0, 0.1²), not JAX's zeros: a
+# zero scale after one step is -lr·update, so its relative L2 error is the
+# update's own, a gradient's relative error per element (8.9e-6 with zero
+# scales at eps 1e-4 on an H100), not the step's error against the
+# parameter's size
+TRAIN_PARITY_NORM_STD = 0.1
+TRAIN_PARITY_REL_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-4, "params": 1e-6}
+# the full-width cells: AdamW as the gnn phase's, on one repeated batch
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+TRAIN_WARMUP, TRAIN_STEPS = 1, 5
+LM_TRAIN_SEQ = 4096             # train_4k's S; its B 256 does not fit one card
+LM_TRAIN_MEM_FRACTION = 0.9     # of the card's memory the chosen B may fill
+DLRM_TRAIN_B = 65_536           # dlrm_rm2's train_batch
+RESUME_RTOL = 1e-4              # JAX's bound (tests/test_checkpoint.py)
+
+
+def run_parity_train(device: str) -> dict:
+    """The five LM smoke configs (norm scales drawn from N(0, 0.1²)) and the
+    DLRM smoke config, from weights drawn on the CPU and numpy batches: the
+    loss's gradients, then one train step (loss, grad_norm, the parameters
+    after it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry as reg
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import dlrm as dlrm_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    opt = AdamWConfig(**TRAIN_PARITY_OPT)
+    out = {}
+    for i, arch in enumerate(LM_ARCHS + ("dlrm-rm2",)):
+        cfg = reg.get_arch(arch).smoke_config()
+        rng = np.random.default_rng(40 + i)
+        gen = torch.Generator().manual_seed(i)
+        if arch == "dlrm-rm2":
+            model = dlrm_mod.init_params(cfg, gen).to(device)
+            shape = (128, cfg.n_sparse, cfg.nnz)
+            batch = {"dense": rng.normal(size=(128, cfg.n_dense)).astype(np.float32),
+                     "sparse_ids": rng.integers(-3, cfg.n_rows + 3, shape).astype(np.int32),
+                     "sparse_mask": rng.random(shape) > 0.3,
+                     "labels": (rng.random(128) > 0.5).astype(np.int32)}
+            step = steps.make_dlrm_train_step(cfg, opt, device)
+
+            def loss_fn(m, b, cfg=cfg):
+                return dlrm_mod.bce_loss(m, b, cfg)
+        else:
+            model = tfm.init_params(cfg, gen)
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.dim() == 1:
+                        p.copy_(torch.randn(p.shape, generator=gen) * TRAIN_PARITY_NORM_STD)
+            model = model.to(device)
+            batch = TokenStream(cfg.vocab, 2, 32, seed=i).next_batch()
+            batch["mask"] = rng.random((2, 32)) > 0.2
+            step = steps.make_lm_train_step(cfg, opt, device=device)
+
+            def loss_fn(m, b, cfg=cfg):
+                return steps.lm_loss(m, b, cfg)[0]
+        leaves = list(model.parameters())
+        for p in leaves:
+            p.requires_grad_(True)
+        grads = torch.autograd.grad(loss_fn(model, steps.batch_to(batch, device)), leaves,
+                                    allow_unused=True, materialize_grads=True)
+        _, _, m = step(model, adamw_init(leaves), batch)
+        out[arch.replace(".", "_")] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "grads": {str(j): g for j, g in enumerate(grads)},
+                     "params": {str(j): p.detach() for j, p in enumerate(leaves)}}
+    return {k: v.cpu() for k, v in _flatten(out)}
+
+
+def train_parity() -> dict:
+    """run_parity_train on the card against the CPU: the largest relative
+    L2 error of loss, grad_norm, gradients and parameters after the step,
+    each within TRAIN_PARITY_REL_TOL."""
+    import torch
+    gpu, cpu = run_parity_train("cuda"), run_parity_train("cpu")
+    check(gpu.keys() == cpu.keys(), "train: parity result keys differ")
+    worst = {kind: (0.0, "") for kind in TRAIN_PARITY_REL_TOL}
+    for k in gpu:
+        kind = k.split(".")[1]
+        check(bool(torch.isfinite(gpu[k]).all()), f"train: parity {k} not finite")
+        worst[kind] = max(worst[kind], (_rel_err(torch, gpu[k], cpu[k]), k))
+    for kind, tol in TRAIN_PARITY_REL_TOL.items():
+        check(worst[kind][0] <= tol, f"train: parity {worst[kind][1]} off the CPU's by "
+                                     f"{worst[kind][0]} (tol {tol})")
+    return {"compared": len(gpu), "max_rel_err": {k: v[0] for k, v in worst.items()},
+            "worst": {k: v[1] for k, v in worst.items()}}
+
+
+def train_losses(torch, step, model, state, batch, what: str) -> tuple[float, list]:
+    """TRAIN_WARMUP + TRAIN_STEPS train steps on one batch: the median time
+    of the last TRAIN_STEPS and every step's loss (finite, the last below
+    the first; every parameter finite after)."""
+    st = [state]
+
+    def one():
+        _, st[0], m = step(model, st[0], batch)
+        return m
+    ms, metrics = host_ms(one, TRAIN_STEPS, TRAIN_WARMUP)
+    losses = [float(m["loss"]) for m in metrics]
+    check(all(math.isfinite(v) for v in losses), f"{what}: a non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"{what}: non-finite parameters after the steps")
+    return ms, losses
+
+
+def lm_train_cell(torch, dev, seed: int) -> dict:
+    """qwen3-1.7b's train_4k config at full width (28 layers, d 2,048, vocab
+    151,936, bf16 compute, fp32 masters and AdamW state) at S 4,096 and the
+    largest B that fits: one step each at B 1 and B 2 gives the peak
+    memory as a + b·B, and B is the largest with a + b·B within
+    LM_TRAIN_MEM_FRACTION of the card. Then a fresh model takes TRAIN_WARMUP
+    + TRAIN_STEPS steps on one repeated TokenStream batch."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    spec = reg.get_arch("qwen3-1.7b")
+    cfg = spec.config_for_shape("train_4k")
+    step = steps.make_lm_train_step(cfg, AdamWConfig(**TRAIN_OPT), device=dev)
+
+    def fresh():
+        model = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        return model, adamw_init(model.parameters())
+
+    def batch(B):
+        return steps.batch_to(TokenStream(cfg.vocab, B, LM_TRAIN_SEQ, seed=seed).next_batch(),
+                              dev)
+
+    reset_peak(torch)
+    t = time.perf_counter()
+    model, state = fresh()
+    sync()
+    out = {"config": "train_4k", "n_params": cfg.n_params(), "seq": LM_TRAIN_SEQ,
+           "init_s": time.perf_counter() - t}
+    peaks = {}
+    for B in (1, 2):
+        reset_peak(torch)
+        _, state, _ = step(model, state, batch(B))
+        sync()
+        peaks[B] = torch.cuda.max_memory_allocated()
+    per_seq = peaks[2] - peaks[1]
+    check(per_seq > 0, f"qwen3-1.7b train: the peak did not grow with B {peaks}")
+    limit = LM_TRAIN_MEM_FRACTION * torch.cuda.get_device_properties(dev).total_memory
+    B = max(1, min(spec.shapes["train_4k"].sizes["batch"],
+                   int((limit - (peaks[1] - per_seq)) // per_seq)))
+    out.update(probe_peak_gib={b: p / 2**30 for b, p in peaks.items()},
+               per_sequence_gib=per_seq / 2**30, batch=B)
+    del model, state
+    reset_peak(torch)
+    model, state = fresh()
+    b = batch(B)
+    ms, losses = train_losses(torch, step, model, state, b, "qwen3-1.7b train")
+    tokens = B * LM_TRAIN_SEQ
+    out.update(losses=losses, ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+               model_tflops_per_s_6N=6 * cfg.n_params() * tokens / ms * 1e-9,
+               peak_mem_gib=peak_gib(torch))
+    return out
+
+
+def dlrm_loss_reference(torch, model, batch) -> float:
+    """bce_loss in float64 on the CPU: the batch's rows gathered on the card
+    as JAX reads them (negatives from the end, then clamped), every sum and
+    product after that in float64."""
+    tables = model.tables.detach()
+    F, R, _ = tables.shape
+    ids = batch["sparse_ids"].long()
+    ids = torch.where(ids < 0, ids + R, ids).clamp(0, R - 1)
+    rows = tables[torch.arange(F, device=ids.device)[None, :, None], ids].cpu().double()
+    mask = batch["sparse_mask"].cpu()
+    emb = (rows * mask[..., None]).sum(2) / mask.sum(-1, keepdim=True).clamp(min=1)
+    del rows
+    x = batch["dense"].cpu().double()
+    for w in model.bot:
+        x = torch.relu(x @ w.detach().cpu().double())
+    z = torch.cat([x[:, None, :], emb], dim=1)
+    zz = torch.bmm(z, z.transpose(1, 2))
+    iu, ju = torch.tril_indices(z.shape[1], z.shape[1], -1)
+    y = torch.cat([zz[:, iu, ju], x], dim=1)
+    for i, w in enumerate(model.top):
+        y = y @ w.detach().cpu().double()
+        if i < len(model.top) - 1:
+            y = torch.relu(y)
+    zl, lab = y[:, 0], batch["labels"].cpu().double()
+    return float(torch.mean(torch.clamp(zl, min=0) - zl * lab + torch.log1p(torch.exp(-zl.abs()))))
+
+
+def dlrm_train_cell(torch, dev, seed: int) -> dict:
+    """DLRM-RM2's train_batch at full size (26 tables of 2^20 × 64 fp32, B
+    65,536, dense table gradients): the first step's loss against a float64
+    CPU forward of the same parameters and batch (1e-5 relative), then
+    TRAIN_WARMUP + TRAIN_STEPS steps on the repeated batch."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.models import dlrm as dlrm_mod
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = dlrm_rm2.config()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    reset_peak(torch)
+    model = dlrm_mod.init_params(cfg, g, dev)
+    B = DLRM_TRAIN_B
+    shape = (B, cfg.n_sparse, cfg.nnz)
+    batch = {"dense": torch.randn((B, cfg.n_dense), generator=g, device=dev),
+             "sparse_ids": torch.randint(0, cfg.n_rows, shape, generator=g, device=dev,
+                                         dtype=torch.int32),
+             "sparse_mask": torch.rand(shape, generator=g, device=dev) > 0.3,
+             "labels": (torch.rand((B,), generator=g, device=dev) > 0.5).to(torch.int32)}
+    t = time.perf_counter()
+    ref = dlrm_loss_reference(torch, model, batch)
+    out = {"batch": B, "table_bytes": model.tables.numel() * model.tables.element_size(),
+           "reference_s": time.perf_counter() - t}
+    step = steps.make_dlrm_train_step(cfg, AdamWConfig(**TRAIN_OPT), dev)
+    ms, losses = train_losses(torch, step, model, adamw_init(model.parameters()), batch,
+                              "dlrm-rm2 train")
+    err = abs(losses[0] - ref) / abs(ref)
+    check(err <= 1e-5, f"dlrm-rm2 train: first loss {losses[0]} off the float64 "
+                       f"reference {ref} by {err}")
+    out.update(losses=losses, reference_loss=ref, first_loss_rel_err=err, ms_per_step=ms,
+               samples_per_s=B / ms * 1e3, peak_mem_gib=peak_gib(torch))
+    return out
+
+
+def train_resume_cell(torch, dev) -> dict:
+    """repro_torch.launch.train.train_lm at qwen3's smoke config on the
+    card: 30 steps straight, then 20 steps, a simulated preemption and a
+    resume for the last 10 from the checkpoint (under build/, removed
+    after); the final losses within RESUME_RTOL."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch.train import train_lm
+
+    kw = dict(smoke=True, steps=30, batch=2, seq=16, log_every=100, device=dev)
+    d = scratch_dir("train-")
+    log = io.StringIO()
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            full = train_lm("qwen3-1.7b", **kw)
+            cut = train_lm("qwen3-1.7b", ckpt_dir=str(d), ckpt_every=10, preempt_at=20, **kw)
+            resumed = train_lm("qwen3-1.7b", ckpt_dir=str(d), resume=True, **kw)
+        seconds = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(cut.get("preempted_at") == 20 and "resumed from step 20" in log.getvalue()
+          and len(resumed["losses"]) == 10, "train: the preemption or the resume went wrong")
+    a, b = full["losses"][-1], resumed["losses"][-1]
+    err = abs(a - b) / abs(a)
+    check(err <= RESUME_RTOL, f"train: resumed final loss {b} off the straight run's {a}")
+    params_err = max(_rel_err(torch, p, q) for p, q in
+                     zip(full["params"].parameters(), resumed["params"].parameters()))
+    return {"final_loss": a, "resumed_final_loss": b, "final_loss_rel_err": err,
+            "final_params_max_rel_err": params_err,
+            "bitwise": a == b and params_err == 0.0, "seconds": seconds}
+
+
+def phase_train(torch, kops, seed: int = 0, device: str = "cuda") -> dict:
+    """The train phase (PERF.md §4): card-against-CPU parity of the train
+    steps, qwen3-1.7b and DLRM-RM2 at full width, preemption and resume;
+    with the launch counts of the training path (it reaches no kernel of
+    the port)."""
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    out = {"parity": train_parity()}
+    out["parity"]["seconds"] = time.perf_counter() - t
+    kops.reset_launches()                       # the training path starts here
+    out["qwen3-1.7b-train"] = lm_train_cell(torch, dev, seed)
+    torch.cuda.empty_cache()
+    out["dlrm-rm2-train"] = dlrm_train_cell(torch, dev, seed)
+    torch.cuda.empty_cache()
+    out["resume"] = train_resume_cell(torch, dev)
+    sync()
+    out["launches"] = dict(kops.launches)       # the training path ends here
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,parity,sift1m,maint,durable,tiered,serve,sharded,"
-                            "models,gnn")
+                            "models,gnn,train")
     ap.add_argument("--n-base", type=int, default=1_000_000)
     # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
     # near half its time limit (PERF.md §4)
@@ -3213,7 +3530,8 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift, maint, durable, tiered, serve, sharded, models, gnn = {}, {}, {}, {}, {}, {}, {}, {}
+    sift, maint, durable, tiered, serve, sharded, models, gnn, train = ({}, {}, {}, {}, {}, {},
+                                                                       {}, {}, {})
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -3310,6 +3628,14 @@ def main(argv=None) -> int:
             gnn = phase_gnn(torch, kops, args.seed)
             emit({"phase": "gnn", "card": smi, **gnn})
             torch.cuda.empty_cache()
+        if "train" in phases:
+            emit({"reduced": {"train": {"qwen3-1.7b": {
+                "batch": "the largest B that fits one card at S 4,096 (printed in the phase "
+                         "line), of train_4k's B 256",
+                "steps": TRAIN_WARMUP + TRAIN_STEPS}}}})
+            train = phase_train(torch, kops, args.seed)
+            emit({"phase": "train", "card": smi, **train})
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3327,6 +3653,7 @@ def main(argv=None) -> int:
             "launches_sharded": sharded.get("launches", {}).get(name, 0),
             "launches_models": models.get("launches", {}).get(name, 0),
             "launches_gnn": gnn.get("launches", {}).get(name, 0),
+            "launches_train": train.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

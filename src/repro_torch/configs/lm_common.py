@@ -60,5 +60,5 @@ def smoke_lm(cfg: tfm.TransformerConfig) -> tfm.TransformerConfig:
         n_layers=2 * cfg.period, d_model=64, n_heads=4, n_kv_heads=2,
         d_head=16, d_ff=96, vocab=128, moe=moe,
         window=8 if cfg.window else None,
-        compute_dtype=torch.float32, block_q=16, block_kv=16,
+        compute_dtype=torch.float32, block_q=16, block_kv=16, xent_chunk=16,
     )

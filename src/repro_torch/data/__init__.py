@@ -1,2 +1,3 @@
-"""Data of the port: synthetic datasets, the update workload and the GNN
-neighbour sampler (copies of ``repro.data``'s generators)."""
+"""Data of the port: synthetic datasets, the update workload, the GNN
+neighbour sampler and the LM token stream (copies of ``repro.data``'s
+generators)."""

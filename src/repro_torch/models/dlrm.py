@@ -6,6 +6,7 @@ masked mean over a gather with JAX's index semantics: an id below zero
 counts from the table's end and an id past either end is clamped to the
 nearest row, so padded ids under a false mask read the rows JAX reads.
 The MLPs have no bias; the bottom MLP ends in a ReLU, the top one does not.
+Under autograd the tables' gradient is dense, as JAX's is.
 
 ``retrieval_scores`` (1 query × 10⁶ candidates) runs the port's
 ``score_topk`` with metric ip: the CUDA kernel for tensors on the card,
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, frozen
+from repro_torch.models.layers import dense_init, frozen, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +98,15 @@ def embedding_bag(tables: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor
     """Mean-pooled multi-hot lookup ``tables [F, R, D]``, ``ids [B, F,
     nnz]``, ``mask bool[B, F, nnz]`` → [B, F, D]. Ids are read as JAX's
     ``tables[f, ids]`` reads them: below zero from the end, then clamped to
-    ``[0, R)``."""
+    ``[0, R)``; the gradient drops what the clamp moved, as JAX's does."""
     F_, R, D = tables.shape
     ids = ids.long()
-    ids = torch.where(ids < 0, ids + R, ids).clamp_(0, R - 1)
-    flat = (torch.arange(F_, device=ids.device)[None, :, None] * R + ids).reshape(-1)
-    rows = tables.reshape(F_ * R, D).index_select(0, flat).view(*ids.shape, D)
+    ids = torch.where(ids < 0, ids + R, ids)
+    base = torch.arange(F_, device=ids.device)[None, :, None] * R
+    read = (base + ids.clamp(0, R - 1)).reshape(-1)
+    rows = take_rows(tables.reshape(F_ * R, D), read,
+                     lambda: torch.where((ids >= 0) & (ids < R), base + ids, F_ * R).reshape(-1)
+                     ).view(*ids.shape, D)
     rows.masked_fill_(~mask[..., None], 0.0)                   # [B, F, nnz, D]
     cnt = mask.sum(-1, keepdim=True).clamp_(min=1)
     return rows.sum(2) / cnt
@@ -121,6 +125,16 @@ def forward(params, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
     iu, ju = torch.tril_indices(f, f, -1, device=z.device)
     inter = zz[:, iu, ju]                                      # [B, f(f-1)/2]
     return _mlp(params.top, torch.cat([inter, bot], dim=1))[:, 0]
+
+
+def bce_loss(params, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
+    """Mean binary cross-entropy of the CTR logits against ``labels``, in
+    JAX's stable form ``max(z, 0) − z·y + log1p(exp(−|z|))``."""
+    z = forward(params, batch, cfg)
+    y = batch["labels"].float()
+    # torch.maximum splits the gradient of a tie as jnp.maximum does
+    return torch.mean(torch.maximum(z, z.new_zeros(())) - z * y
+                      + torch.log1p(torch.exp(-z.abs())))
 
 
 def retrieval_scores(query_emb: torch.Tensor, candidates: torch.Tensor, k: int

@@ -5,8 +5,11 @@ Message passing runs directly over an edge list: ``index_add_`` for the
 sums, ``scatter_reduce("amax")`` for the segment max. All shapes are
 static: graphs are padded to (n_nodes, n_edges[, n_triplets]) with
 validity masks, and padded edges point at node 0 with mask False, so they
-add exact zeros. Every id must lie in ``[0, n)``: JAX's gathers clamp and
-its scatters drop ids out of range, where torch raises.
+add exact zeros. Ids out of range read and write as in JAX, where torch
+would raise: a gather reads a negative id from the end and clamps the rest
+into ``[0, n)`` (its gradient drops what the clamp moved, as XLA's
+scatter does), and a scatter drops every id outside ``[0, n)`` (it adds
+into a spare row ``n`` that is cut off).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.models.layers import jax_take
 
 # the messages one chunk of ``neighbour_sum`` holds: products' layer 2
 # would hold [61.9 M, 128] fp32 (31.7 GB), twice with its masked copy
@@ -88,22 +92,29 @@ def make_graph(
     )
 
 
+def scatter_ids(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` with every id outside ``[0, n)`` sent to the spare row
+    ``n``: JAX's segment ops drop such ids."""
+    return torch.where((idx >= 0) & (idx < n), idx, n)
+
+
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` along the first axis."""
-    return x.index_select(0, idx)
+    """``x[idx]`` along the first axis, as JAX reads and differentiates it
+    (``models.layers.jax_take``)."""
+    return jax_take(x, idx)
 
 
 def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
     """Σ over incoming edges — the message-passing primitive."""
-    out = messages.new_zeros((n,) + tuple(messages.shape[1:]))
-    return out.index_add_(0, dst, messages)
+    out = messages.new_zeros((n + 1,) + tuple(messages.shape[1:]))
+    return out.index_add_(0, scatter_ids(dst, n), messages)[:n]
 
 
 def segment_max(x: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
     """Per-segment max; ``-inf`` for a segment nothing is sent to."""
-    out = x.new_full((n,) + tuple(x.shape[1:]), float("-inf"))
-    idx = dst.long().view((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
-    return out.scatter_reduce(0, idx, x, "amax", include_self=False)
+    out = x.new_full((n + 1,) + tuple(x.shape[1:]), float("-inf"))
+    idx = scatter_ids(dst, n).long().view((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
+    return out.scatter_reduce(0, idx, x, "amax", include_self=False)[:n]
 
 
 def segment_mean(messages, dst, mask, n) -> torch.Tensor:
@@ -139,14 +150,14 @@ def neighbour_sum(h, src, dst, mask, n, *, chunk_bytes: int = EDGE_CHUNK_BYTES
     at most ``chunk_bytes`` of messages, so ``[E, d]`` is never held whole.
     The chunks add in edge order, so on the CPU the sums are those of one
     ``index_add_`` over every edge."""
-    out = h.new_zeros((n,) + tuple(h.shape[1:]))
+    out = h.new_zeros((n + 1,) + tuple(h.shape[1:]))
     row_bytes = max(1, h[0].numel() * h.element_size())
     step = max(1, chunk_bytes // row_bytes)
     for lo in range(0, src.shape[0], step):
-        msgs = h.index_select(0, src[lo:lo + step])
+        msgs = gather(h, src[lo:lo + step])
         msgs.masked_fill_(~mask[lo:lo + step, None], 0.0)
-        out.index_add_(0, dst[lo:lo + step], msgs)
-    return out
+        out.index_add_(0, scatter_ids(dst[lo:lo + step], n), msgs)
+    return out[:n]
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Decoder-only LM family (``repro.models.transformer``): prefill and decode.
+"""Decoder-only LM family (``repro.models.transformer``): the full-sequence
+forward (training and prefill), the chunked LM loss and decode.
 
 One config covers the five assigned transformers: GQA with a decoupled
 d_head, RoPE with a per-arch theta (split halves), qk-norm (qwen3),
@@ -11,8 +12,10 @@ JAX stacks the layers per pattern position and scans over period groups;
 the port holds one ``nn.ModuleList`` entry per layer (layer ``l`` is group
 ``l // period``, position ``l % period``) and loops over them, and
 ``from_jax_params`` unstacks JAX's tree into it. The decode cache holds one
-``(k, v)`` pair of ``[B, S_max, Hkv, dh]`` per layer. ``chunked_xent``
-belongs to training and is not here.
+``(k, v)`` pair of ``[B, S_max, Hkv, dh]`` per layer. Under autograd the
+attention recomputes each q block and ``chunked_xent`` each chunk's logits
+in the backward pass, so neither ``[Sq, Sk]`` scores nor ``[B, S, V]``
+logits are ever held.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -54,6 +58,7 @@ class TransformerConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     block_q: int = 512
     block_kv: int = 512
+    xent_chunk: int = 1024
 
     @property
     def period(self) -> int:
@@ -318,6 +323,35 @@ def logits_from_hidden(params, h: torch.Tensor, cfg: TransformerConfig
     if cfg.final_softcap is not None:
         logit = L.softcap(logit, cfg.final_softcap)
     return logit
+
+
+def _chunk_nll(params, h, labels, mask, cfg: TransformerConfig) -> torch.Tensor:
+    """Σ of one chunk's masked token losses: its [B, c, V] logits live only
+    inside this call."""
+    logits = logits_from_hidden(params, h, cfg)                  # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    return torch.where(mask, lse - gold, 0.0).sum()
+
+
+def chunked_xent(params, h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """Sequence-chunked LM cross-entropy over ``cfg.xent_chunk`` positions a
+    chunk, summed in chunk order and divided by the mask's count. Under
+    autograd each chunk's logits are recomputed in the backward pass (JAX's
+    ``jax.checkpoint(chunk_loss)``), so ``[B, S, V]`` is never held."""
+    S = h.shape[1]
+    c = min(cfg.xent_chunk, S)
+    if S % c:
+        raise ValueError(f"sequence {S} is no multiple of xent_chunk {c}")
+    remat = torch.is_grad_enabled() and (h.requires_grad or params.embed.requires_grad)
+    total = torch.zeros((), device=h.device)
+    for lo in range(0, S, c):
+        args = (params, h[:, lo:lo + c], labels[:, lo:lo + c], mask[:, lo:lo + c], cfg)
+        nll = (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
+               else _chunk_nll(*args))
+        total = total + nll
+    return total / torch.clamp(mask.sum(), min=1)
 
 
 # ---------------------------------------------------------------------------

@@ -250,6 +250,52 @@ def test_segment_ops_match_jax_with_padding_and_empty_segments():
     np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=1e-6, atol=1e-7)
 
 
+def test_out_of_range_ids_read_and_write_as_in_jax():
+    """Ids of -1, n and beyond either end: scatter_sum, segment_mean,
+    segment_softmax and degree drop them as JAX's segment ops do; a
+    gathered message (and neighbour_sum's) reads a negative id from the end
+    and clamps the rest, as JAX's ``x[idx]`` does. Values and the
+    gradients of a random functional against JAX's."""
+    n, E = 6, 14
+    rng = np.random.default_rng(5)
+    dst = np.array([-1, 6, 0, 1, 2, 5, -7, 9, 3, 3, 4, -1, 6, 0], np.int32)
+    src = np.array([6, -1, 0, 2, -2, 5, 8, -9, 1, 3, 4, 6, -1, 2], np.int32)
+    mask = rng.random(E) > 0.2
+    msgs = rng.normal(size=(E, 3)).astype(np.float32)
+    scores = rng.normal(size=(E, 2)).astype(np.float32)
+    h = rng.normal(size=(n, 3)).astype(np.float32)
+    w_n, w_e = rng.normal(size=(n, 3)).astype(np.float32), rng.normal(size=(E, 2)).astype(np.float32)
+    w_g = rng.normal(size=(E, 3)).astype(np.float32)
+
+    def jfun(m, s, hh):
+        outs = (jcommon.scatter_sum(m, dst, n), jcommon.segment_mean(m, dst, mask, n),
+                jcommon.segment_softmax(s, dst, mask, n), jcommon.degree(dst, mask, n),
+                hh[src], jcommon.scatter_sum(jnp.where(mask[:, None], hh[src], 0.0), dst, n))
+        return (jnp.sum(outs[0] * w_n) + jnp.sum(outs[1] * w_n) + jnp.sum(outs[2] * w_e)
+                + jnp.sum(outs[4] * w_g) + jnp.sum(outs[5] * w_n)), outs
+
+    (_, jouts), jgr = jax.value_and_grad(jfun, argnums=(0, 1, 2), has_aux=True)(msgs, scores, h)
+    tdst, tsrc, tmask = (torch.from_numpy(a) for a in (dst, src, mask))
+    tin = [torch.tensor(v, requires_grad=True) for v in (msgs, scores, h)]
+    touts = (tcommon.scatter_sum(tin[0], tdst, n), tcommon.segment_mean(tin[0], tdst, tmask, n),
+             tcommon.segment_softmax(tin[1], tdst, tmask, n), tcommon.degree(tdst, tmask, n),
+             tcommon.gather(tin[2], tsrc),
+             tcommon.neighbour_sum(tin[2], tsrc, tdst, tmask, n, chunk_bytes=4 * 3 * 4))
+    tl = ((touts[0] * torch.from_numpy(w_n)).sum() + (touts[1] * torch.from_numpy(w_n)).sum()
+          + (touts[2] * torch.from_numpy(w_e)).sum() + (touts[4] * torch.from_numpy(w_g)).sum()
+          + (touts[5] * torch.from_numpy(w_n)).sum())
+    tgr = torch.autograd.grad(tl, tin)
+    for got, want in zip(touts, jouts):
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+    for got, want in zip(tgr, jgr):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    # a dropped id really adds nothing: node 0 gets only edges 2 and 13
+    keep = (dst >= 0) & (dst < n)
+    assert float(touts[3][0]) == float((mask & (dst == 0)).sum()) and int(keep.sum()) < E
+    assert float(tcommon.segment_max(tin[1].detach(), tdst, n)[5, 0]) == float(scores[5, 0])
+
+
 def _spec_leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):

@@ -1,6 +1,6 @@
 """Where the time of the port's model-zoo serving cells goes, on one card.
 
-    python3 tools/torch_models_profile.py [--ops serving,gnn]
+    python3 tools/torch_models_profile.py [--ops serving,gnn,train]
 
 Builds the cells of ``chip_smoke.py``'s models phase that it profiles —
 qwen3-1.7b at full depth with bf16 serving weights, and the full DLRM-RM2
@@ -25,6 +25,12 @@ included), and the graphsage-products-full forward. The sampled ops draw
 their batches from a graph of Reddit's 232,965 nodes at degree 32 (a
 step's shapes are the batch's, 1,024 targets at fanout 15-10, whatever
 the degree), so the profile skips the cell's 40 s CSR build.
+
+``--ops train`` traces the train phase's two full-width steps: a
+qwen3-1.7b train step (train_4k's config: bf16 compute, fp32 masters and
+AdamW state) at S 4,096 and B ``TRAIN_BATCH`` (2, the largest B the
+train phase finds to fit the card) on one repeated TokenStream batch, and a DLRM-RM2 train step at B 65,536 (dense table
+gradients), each beside the device time of its AdamW update alone.
 
 The card's name and power limit come first. Needs one CUDA device; imports
 nothing of JAX.
@@ -61,6 +67,7 @@ KINDS = (("matmul", ("gemm", "gemv", "sm90_xmma", "cutlass", "splitK", "Kernel2"
 
 
 UNTRACED_RUNS = 10
+TRAIN_BATCH = 2
 
 
 def emit(obj) -> None:
@@ -169,11 +176,52 @@ def profile_gnn(dev) -> None:
           **traced(lambda: fwd(pmodel, {"graph": g}))})
 
 
+def profile_train(dev, batch: int) -> None:
+    """One qwen3-1.7b train step at S 4,096 and B ``batch``, and one
+    DLRM-RM2 train step at B 65,536, each with its AdamW update alone."""
+    import chip_smoke
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+
+    opt = AdamWConfig(**chip_smoke.TRAIN_OPT)
+
+    def traced_step(name, step, model, b):
+        state = [adamw_init(model.parameters())]
+
+        def one():
+            _, state[0], m = step(model, state[0], b)
+            return m
+        emit({"op": name, **traced(one)})
+        leaves = list(model.parameters())
+        grads = [torch.ones_like(p) for p in leaves]
+        emit({"op": f"{name}: its AdamW update alone",
+              **traced(lambda: adamw_update(leaves, grads, state[0], opt))})
+
+    cfg = reg.get_arch("qwen3-1.7b").config_for_shape("train_4k")
+    model = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    b = steps.batch_to(TokenStream(cfg.vocab, batch, chip_smoke.LM_TRAIN_SEQ).next_batch(), dev)
+    traced_step(f"qwen3-1.7b train step B{batch} S{chip_smoke.LM_TRAIN_SEQ}",
+                steps.make_lm_train_step(cfg, opt, device=dev), model, b)
+    del model, b
+    torch.cuda.empty_cache()
+    dcfg = dlrm_rm2.config()
+    g = torch.Generator(device=dev).manual_seed(0)
+    dlrm = dlrm_mod.init_params(dcfg, g, dev)
+    B = chip_smoke.DLRM_TRAIN_B
+    shape = (B, dcfg.n_sparse, dcfg.nnz)
+    db = {"dense": torch.randn((B, dcfg.n_dense), generator=g, device=dev),
+          "sparse_ids": torch.randint(0, dcfg.n_rows, shape, generator=g, device=dev),
+          "sparse_mask": torch.rand(shape, generator=g, device=dev) > 0.3,
+          "labels": (torch.rand((B,), generator=g, device=dev) > 0.5).to(torch.int32)}
+    traced_step(f"dlrm train step B{B}", steps.make_dlrm_train_step(dcfg, opt, dev), dlrm, db)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ops", default="serving,gnn",
-                    help="comma-separated: serving (the models phase's ops), gnn")
-    ops = set(ap.parse_args(argv).ops.split(","))
+                    help="comma-separated: serving (the models phase's ops), gnn, train")
+    args = ap.parse_args(argv)
+    ops = set(args.ops.split(","))
     if not torch.cuda.is_available():
         print("torch_models_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -185,6 +233,8 @@ def main(argv=None) -> int:
         profile_gnn(dev)
     if "serving" in ops:
         profile_serving(dev)
+    if "train" in ops:
+        profile_train(dev, TRAIN_BATCH)
     return 0
 
 
