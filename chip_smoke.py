@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,models
     python3 chip_smoke.py --phases build,gnn
     python3 chip_smoke.py --phases build,train
+    python3 chip_smoke.py --phases build,dryrun
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
@@ -17,10 +18,12 @@ Phases, each printing one JSON line:
            Gaussian data (rtol 1e-4 / atol 1e-3; score_matrix 2e-4 / 2e-4·d
            in fp32, 2e-2 / 2e-2·d in bf16); score_topk at k = 1, 10, 65 and
            128, B no multiple of its query tile, n_valid inside a row tile,
-           in its single- and multi-split forms; score_matrix's self path
-           (q is x) against its general path and the plain version at
-           n = 1..128; the gathers at d = 8, 32, 100, 128, 130 and on
-           offset table views, at B 64 and 4,096 × C 32, and one
+           in its single- and multi-split forms, and at the ipgm-online
+           serve_d960 cell's bulk build (M 2,048, d 960, k 65);
+           score_matrix's self path (q is x) against its general path and
+           the plain version at n = 1..128, and at d 960; the gathers at
+           d = 8, 32, 100, 128, 130, 960 and on offset table views, at B
+           64 and 4,096 × C 32, and one
            gather_scores launch captured in a CUDA graph and replayed on
            new ids; median times of kernel, plain version and one
            library call (per select shape for score_matrix, at the bulk
@@ -166,7 +169,31 @@ Phases, each printing one JSON line:
            finite, ms a step, samples/s, peak memory; train_lm at qwen3's
            smoke config on the card, 30 steps straight against 20 steps, a
            simulated preemption and a resume for the last 10 (final losses
-           within 1e-4 relative); the path launches none of the kernels.
+           within 1e-4 relative); the path launches none of the kernels;
+  dryrun   the planner of ``repro_torch.launch.dryrun``: every non-skipped
+           registry cell but the LM prefill_32k ones (planned by the CLI
+           alone, printed as ``reduced``) traced on meta and planned for one
+           card and for four (per-device bytes of params, optimizer state
+           and batch by the sharding rules, the planned peak, FLOPs and
+           bytes, the analytic collective bytes, the roofline terms at the
+           card's peaks, fits within 0.9 of 80 GB), the traces spread over
+           one process for every two cores; as each plan comes in, every cell
+           planned to fit one card runs on the card in this process with
+           seeded weights and inputs — the index cells as one shard of 8,192
+           (2,048 at d 960) slots, every slot bulk-built but the insert
+           cell's room for its batches, bf16 rows, and as four such shards
+           stacked — for 1 warm, 3 timed and 1 counted step: ms, peak
+           memory against the plan, kernel launches (the index cells'
+           FLOPs, bytes and peak from the counted run, with the beam loop's
+           trips beside JAX's max_steps bound); each kernel's launches by
+           full shape, and the first launch at each shape held against the
+           plain version on host copies of its inputs (gathers rtol 1e-4 /
+           atol 1e-3, score_topk the same with ids equal outside near-ties,
+           score_matrix 2e-4 / 2e-4·d); fails if a cell planned to fit did
+           not run or ran past the card's memory, if the bf16-row gather,
+           score_matrix or score_topk was not launched, or if a shape
+           launched unchecked or disagreed; the whole manifest goes to
+           build/dryrun_manifest.json.
 Then the kernel table line, the card line as nvidia-smi prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository beside it, it exits 2 and prints
@@ -187,8 +214,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 on the CUDA cores
 RTOL, ATOL = 1e-4, 1e-3         # the Pallas kernels' tolerance (tests/test_kernels.py)
 
 KERNELS = {
@@ -280,6 +305,8 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
     inf_g, inf_w = torch.isinf(got), torch.isinf(want)
     check(torch.equal(inf_g, inf_w), "-inf mask differs")
     m = ~inf_g
+    if not bool(m.any()):                       # every entry -inf in both
+        return 0.0
     err = (got[m] - want[m]).abs()
     tol = atol + rtol * want[m].abs()
     check(bool((err <= tol).all()), f"max error {float(err.max())} over tolerance")
@@ -308,10 +335,11 @@ def _topk_ids_ok(gs, gi, ws, wi):
     return int(diff.sum())
 
 
-# widths the gathers are held at: fp32 rows take float4 pieces at 8, 32, 100
-# and 128 and single floats at 130; codes take 16-byte pieces at 32 and 128
-# and single bytes at 8, 100 and 130
-GATHER_WIDTHS = (8, 32, 100, 128, 130)
+# widths the gathers are held at: fp32 rows take float4 pieces at 8, 32, 100,
+# 128 and 960 and single floats at 130; codes take 16-byte pieces at 32, 128
+# and 960 and single bytes at 8, 100 and 130; 960 is the ipgm-online
+# serve_d960 cell's
+GATHER_WIDTHS = (8, 32, 100, 128, 130, 960)
 ROTATION_BYTES = 128 << 20      # rows one rotation of id sets reads: > 2 × the 50 MB L2
 
 
@@ -355,10 +383,13 @@ def graph_ms_rotating(fn, n_sets: int) -> float:
     return ms
 
 
-def gather_byte_bound_ms(B: int, C: int, d: int, row_bytes: int) -> float:
-    """Each row (4d bytes fp32, 2d bf16, d q8), id, norm or scale and score
-    once, and q once, over 3.35 TB/s."""
-    return (B * C * (row_bytes + 12) + B * d * 4) / PEAK_BYTES_PER_S * 1e3
+def kernel_bound(work: tuple) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel's (FLOPs, bytes), as
+    ``kernels/ops.py``'s ``*_work`` reckons them, at the card's fp32 and
+    HBM peaks (``launch/analysis.py``)."""
+    from repro_torch.launch.analysis import bound_ms
+    ms, by = bound_ms(*work)
+    return dict(bound_ms=ms, bound_by=by)
 
 
 def gather_tables(torch, make, full, dev, n_small: int = 1 << 16):
@@ -559,15 +590,14 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
             ms=median_ms_rotating(lambda i: kfn(table, aux, rot[i], q, metric="l2"), n),
             plain_ms=median_ms_rotating(lambda i: pfn(table, aux, rot[i], q, "l2"), n),
             library_ms=median_ms_rotating(lambda i: lib(rot[i], q), n),
-            bound_ms=gather_byte_bound_ms(B, C, d, row_bytes),
-            bound_by="bytes",
+            **kernel_bound(kops.gather_work(B, C, d, row_bytes)),
             max_abs_err=max(errs),
             device_ms=graph_ms_rotating(lambda i: kfn(table, aux, rot[i], q, metric="l2"), n),
             ms_B64=median_ms_rotating(lambda i: kfn(table, aux, rot64[i], q64), n64),
             device_ms_B64=graph_ms_rotating(lambda i: kfn(table, aux, rot64[i], q64), n64),
             plain_ms_B64=median_ms_rotating(lambda i: pfn(table, aux, rot64[i], q64, "l2"), n64),
             library_ms_B64=median_ms_rotating(lambda i: lib(rot64[i], q64), n64),
-            bound_ms_B64=gather_byte_bound_ms(64, C, d, row_bytes),
+            bound_ms_B64=kernel_bound(kops.gather_work(64, C, d, row_bytes))["bound_ms"],
             rotation_sets=n, shape=dict(B=B, C=C, N=N, d=d))
         del rot, rot64
     del cg, sg, xb
@@ -601,6 +631,18 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
               f"score_topk single split k={kk}: integer data ids/scores differ")
         del gs, gi, ws, wi
     del q1, x1
+    # the serve_d960 cell's bulk build: each row of a full 2,048-slot shard
+    # at d 960 against all of them, k 65 (k_nn 64 and the row itself), all
+    # rows valid and n_valid cutting a row tile
+    M9, d9 = ipgm_d960()
+    x9 = _int_data(g, (M9, d9), dev)
+    for metric in ("l2", "ip"):
+        for nv in (M9, M9 - 50):
+            gs, gi = kops.score_topk(x9, (x9 * x9).sum(1), x9, 65, metric=metric, n_valid=nv)
+            ws, wi = kref.score_topk(x9, (x9 * x9).sum(1), x9, 65, metric, nv)
+            check(torch.equal(gi, wi) and torch.equal(gs, ws),
+                  f"score_topk d {d9} M {M9} {metric} n_valid={nv}: integer data ids/scores differ")
+    del x9, gs, gi, ws, wi
     # all-negative ip padding case and grown tiers (Gaussian)
     xn = -xg[:123].abs().contiguous()
     qp = torch.randn((9, 64), generator=g, device=dev).abs()
@@ -625,14 +667,12 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     def lib_topk():
         return torch.topk(2.0 * (qg @ xg.T) - tsq[None, :], k, dim=1)
 
-    flops = 2.0 * Bq * N * d
     results["score_topk"] = dict(
         ms=median_ms(lambda: kops.score_topk(xg, tsq, qg, k)),
         plain_ms=median_ms(lambda: kref.score_topk(xg, tsq, qg, k, "l2"), runs=20, warmup=1),
         library_ms=median_ms(lib_topk, runs=20, warmup=1),
-        bound_ms=max(flops / PEAK_FP32_FLOPS,
-                     ((N * d + N + Bq * d) * 4 + Bq * k * 8) / PEAK_BYTES_PER_S) * 1e3,
-        bound_by="operations", max_abs_err=err, id_swaps_near_ties=swaps,
+        **kernel_bound(kops.topk_work(Bq, N, d, k, "l2")),
+        max_abs_err=err, id_swaps_near_ties=swaps,
         shape=dict(B=Bq, M=N, d=d, k=k))
     # the bulk build's block (no single library call: its [16384, 2^20]
     # score matrix would be 64 GiB)
@@ -640,9 +680,8 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     qb = torch.randn((Bb, d), generator=g, device=dev)
     results["score_topk"]["ms_build_block"] = median_ms(
         lambda: kops.score_topk(xg, tsq, qb, kb), runs=5, warmup=1)
-    results["score_topk"]["bound_ms_build_block"] = max(
-        2.0 * Bb * N * d / PEAK_FP32_FLOPS,
-        ((N * d + N + Bb * d) * 4 + Bb * kb * 8) / PEAK_BYTES_PER_S) * 1e3
+    results["score_topk"]["bound_ms_build_block"] = kernel_bound(
+        kops.topk_work(Bb, N, d, kb, "l2"))["bound_ms"]
     del qb
     results["score_topk"].update(score_topk_b1_case(torch, kops, kref, dev, g))
     results["score_matrix"] = score_matrix_case(torch, kops, kref, dev, g, xg)
@@ -704,18 +743,28 @@ def score_topk_b1_case(torch, kops, kref, dev, g) -> dict:
     err = float((gs - ws[:, :k]).abs().max())
     xsq = (xg * xg).sum(1)
     planned = kops.topk_splits(1, M, kops.num_sms(dev), k)
-    # metric ip reads the rows and the query, not xsq (score_topk.cu stages
-    # xsq for l2 only), and writes k scores and ids
-    t_bytes = ((M * d + d) * 4 + k * 8) / PEAK_BYTES_PER_S
-    t_ops = 2.0 * M * d / PEAK_FP32_FLOPS
     return {"retrieval_b1": dict(
         ms=median_ms(lambda: kops.score_topk(xg, xsq, qg, k, metric="ip")),
         plain_ms=median_ms(lambda: kref.score_topk(xg, xsq, qg, k, "ip")),
         library_ms=median_ms(lambda: torch.topk(qg @ xg.T, k, dim=1)),
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        **kernel_bound(kops.topk_work(1, M, d, k, "ip")),
         max_abs_err=err, near_tie_cuts=near, splits=planned,
         shape=dict(B=1, M=M, d=d, k=k, metric="ip"))}
+
+
+def matrix_tol(dtype, d: int) -> dict:
+    """score_matrix's tolerance, as the Pallas tests': 2e-4 / 2e-4·d in
+    fp32, 2e-2 / 2e-2·d in bf16."""
+    import torch
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    return dict(rtol=t, atol=t * d)
+
+
+def ipgm_d960():
+    """(capacity, dim) of the ipgm-online serve_d960 cell's shard."""
+    from repro_torch.configs import registry as reg
+    cfg = reg.get_arch("ipgm-online").config_for_shape("serve_d960")
+    return cfg.capacity, cfg.dim
 
 
 def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
@@ -728,10 +777,6 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
 
     def sq(x):
         return (x.float() * x.float()).sum(-1)
-
-    def tol(dtype, dd):
-        t = 2e-2 if dtype == torch.bfloat16 else 2e-4
-        return dict(rtol=t, atol=t * dd)
 
     for R, n in SELECT_SHAPES:
         xi = _int_data(g, (R, n, d), dev)
@@ -746,7 +791,7 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((R, n, d), generator=g, device=dev).to(dtype)
             e = _close(kops.score_matrix(x, sq(x), x),
-                       kref.score_matrix(x, sq(x), x), **tol(dtype, d))
+                       kref.score_matrix(x, sq(x), x), **matrix_tol(dtype, d))
             if dtype == torch.float32:
                 errs.append(e)
     # the self path (q is x; n <= 64) against the general path (q a copy of
@@ -767,10 +812,22 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
                   f"score_matrix self n={n} {metric}: integer data not exact")
             got = kops.score_matrix(xg3, sq(xg3), xg3, metric=metric)
             errs.append(_close(got, kref.score_matrix(xg3, sq(xg3), xg3, metric),
-                               **tol(torch.float32, d)))
+                               **matrix_tol(torch.float32, d)))
             gen = kops.score_matrix(xg3, sq(xg3), xg3.clone(), metric=metric)
-            _close(got, gen, **tol(torch.float32, d))
+            _close(got, gen, **matrix_tol(torch.float32, d))
             self_equals_general &= bool(torch.equal(got, gen))
+    # the self path at the serve_d960 cell's width: SELECT-NEIGHBORS of its
+    # bulk build takes pools of 64 at d 960
+    _, d9 = ipgm_d960()
+    for n in (1, 33, 64):
+        xi = _int_data(g, (515, n, d9), dev)
+        check(kops.is_self_pair(xi, xi), f"score_matrix d {d9} n={n}: self-path routing")
+        for metric in ("l2", "ip"):
+            got = kops.score_matrix(xi, sq(xi), xi, metric=metric)
+            check(torch.equal(got, kref.score_matrix(xi, sq(xi), xi, metric))
+                  and torch.equal(got, kops.score_matrix(xi, sq(xi), xi.clone(),
+                                                         metric=metric)),
+                  f"score_matrix self d {d9} n={n} {metric}: integer data not exact")
     for M, B, dd in ((300, 50, 200), (512, 128, 128), (1000, 17, 960),
                      (257, 33, 100)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -778,7 +835,7 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
                 x = torch.randn((M, dd), generator=g, device=dev).to(dtype)
                 q = torch.randn((B, dd), generator=g, device=dev).to(dtype)
                 e = _close(kops.score_matrix(x, sq(x), q, metric=metric),
-                           kref.score_matrix(x, sq(x), q, metric), **tol(dtype, dd))
+                           kref.score_matrix(x, sq(x), q, metric), **matrix_tol(dtype, dd))
                 if dtype == torch.float32:
                     errs.append(e)
     for M in (1 << 10, (1 << 10) + 1, 3 << 10, 1 << 17, (1 << 17) + 1, 3 << 17):
@@ -788,7 +845,7 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
             xx, qq = x.to(dtype), q.to(dtype)
             got = kops.score_matrix(xx, sq(xx), qq)
             check(got.shape == (13, M), "score_matrix output not cropped to [B, M]")
-            e = _close(got, kref.score_matrix(xx, sq(xx), qq, "l2"), **tol(dtype, d))
+            e = _close(got, kref.score_matrix(xx, sq(xx), qq, "l2"), **matrix_tol(dtype, d))
             if dtype == torch.float32:
                 errs.append(e)
 
@@ -802,22 +859,17 @@ def score_matrix_case(torch, kops, kref, dev, g, xg) -> dict:
         general_ms_by_shape[key] = median_ms(lambda: kops.score_matrix(x, xsq, xc))
         library_ms_by_shape[key] = median_ms(lambda: torch.baddbmm(
             -xsq[:, None, :], x, x.transpose(1, 2), alpha=2.0))
-        bound_ms_by_shape[key] = max(
-            2.0 * R * n * n * d / PEAK_FP32_FLOPS,
-            (R * n * d + R * n + R * n * n) * 4 / PEAK_BYTES_PER_S) * 1e3
+        bound_ms_by_shape[key] = kernel_bound(
+            kops.matrix_work(R, n, n, d, 4, True))["bound_ms"]
     R, n = 4096, 64                      # the GLOBAL-repair select
     x = torch.randn((R, n, d), generator=g, device=dev)
     xsq = sq(x)
-    flops = 2.0 * R * n * n * d
-    nbytes = (R * n * d + R * n + R * n * n) * 4      # x read once: q is x
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return dict(
         ms=median_ms(lambda: kops.score_matrix(x, xsq, x)),
         plain_ms=median_ms(lambda: kref.score_matrix(x, xsq, x, "l2")),
         library_ms=median_ms(lambda: torch.baddbmm(
             -xsq[:, None, :], x, x.transpose(1, 2), alpha=2.0)),
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        **kernel_bound(kops.matrix_work(R, n, n, d, 4, True)),     # q is x
         max_abs_err=max(errs), ms_by_shape=ms_by_shape,
         general_ms_by_shape=general_ms_by_shape,
         library_ms_by_shape=library_ms_by_shape,
@@ -2230,23 +2282,6 @@ def shard_capacity(n_base: int, per_round: int, n_shards: int) -> int:
     return 1 << max(10, (-(-n_base // n_shards) + per_round).bit_length())
 
 
-def bf16_rows(torch, state):
-    """The stacked state with its rows kept in bf16, as the sharded config
-    stores them (``DistParams(vec_dtype="bfloat16")``): each present row cast
-    to bf16, its sqnorm and int8 codes taken from the cast row — the bytes
-    the insert path writes for a bf16 row; the graph is the one bulk-built
-    over the f32 rows (``reshard`` builds f32 states, as JAX's does)."""
-    from repro_torch.core.distances import sqnorm
-    from repro_torch.core.quantize import quantize_rows
-    vb = state.vectors.bfloat16()
-    p = state.present
-    codes, scales = quantize_rows(vb)
-    return dataclasses.replace(
-        state, vectors=vb, sqnorms=torch.where(p, sqnorm(vb), 0.0),
-        codes=torch.where(p[..., None], codes, 0),
-        scales=torch.where(p, scales, 0.0))
-
-
 def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
                   device: str = "cuda") -> dict:
     """Cell sift1m-sharded: the base placed by ``elastic.reshard`` (hash
@@ -2269,7 +2304,7 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     from repro_torch.distributed import (DistParams, ShardedSession, ShardMesh,
                                          init_sharded_state, make_query_step,
                                          reshard)
-    from repro_torch.distributed.ann import shard_view
+    from repro_torch.distributed.ann import bf16_rows, shard_view
     from repro_torch.kernels import ops as kops
 
     t_phase = time.perf_counter()
@@ -2310,7 +2345,7 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     src.alive[0, :n_base] = True
     placed, remap = reshard(src, src_params, params, S)
     del src
-    state = bf16_rows(torch, placed)
+    state = bf16_rows(placed)
     del placed
     wait()
     out["place_s"] = time.perf_counter() - t0
@@ -3481,11 +3516,201 @@ def phase_train(torch, kops, seed: int = 0, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# dryrun: every registry cell planned for one and four cards, and run on
+# the card where it fits one
+# ---------------------------------------------------------------------------
+
+DRYRUN_KERNELS = ("gather_scores_bf16", "score_matrix", "score_topk")
+DRYRUN_MANIFEST = ROOT / "build" / "dryrun_manifest.json"      # the CLI's default
+# shapes planned outside the phase: an LM's prefill_32k trace walks 2,080
+# q/kv tile pairs a layer, 30-75 s a cell on the card's host, past the
+# phase's 90 s (python -m repro_torch.launch.dryrun --shape prefill_32k)
+DRYRUN_CUT = ("prefill_32k",)
+
+
+class LaunchAudit:
+    """While entered: the kernel wrappers that the registry cells call
+    (``gather_scores``, ``score_topk``, ``score_matrix``) tally their
+    launches by full shape (``by_shape``), and the first launch of each
+    shape, outside a counted trace, is held against the plain version on
+    the same inputs (``max_err``): the gathers within rtol 1e-4 / atol
+    1e-3, score_topk's scores so and its ids equal except inside a
+    near-tie, score_matrix within ``matrix_tol``. The checks launch
+    nothing; a cell's shapes first launch in its build and warm step,
+    which its measured peak leaves out (``launch/dryrun.py::run_cell``).
+    ``unchecked()`` lists the shapes that launched unchecked."""
+
+    def __init__(self, kops, kref):
+        self.kops, self.kref = kops, kref
+        self.by_shape: dict = {}
+        self.max_err: dict = {}
+        self._orig: dict = {}
+
+    def _call(self, fn, args, kw, key, hold):
+        launches = self.kops.launches
+        before = dict(launches)
+        out = fn(*args, **kw)
+        for name, n in launches.items():
+            if n != before[name]:
+                shapes = self.by_shape.setdefault(name, {})
+                shapes[key()] = shapes.get(key(), 0) + n - before[name]
+                if self.kops.observer is None and key() not in self.max_err:
+                    self.max_err[key()] = hold(out)
+        return out
+
+    def __enter__(self):
+        kops, kref = self.kops, self.kref
+        self._orig = orig = {n: getattr(kops, n)
+                             for n in ("gather_scores", "score_topk", "score_matrix")}
+
+        def gather_scores(table, tsq, ids, q, *, metric="l2"):
+            return self._call(
+                orig["gather_scores"], (table, tsq, ids, q), dict(metric=metric),
+                lambda: (f"gather B{ids.shape[0]} C{ids.shape[1]} d{table.shape[1]} "
+                         f"{str(table.dtype)[6:]} {metric}"),
+                lambda out: _close(out, kref.gather_scores(table, tsq, ids, q, metric)))
+
+        def hold_topk(x, xsq, q, k, metric, n_valid, out):
+            gs, gi = out
+            ws, wi = kref.score_topk(x, xsq, q, k, metric, n_valid)
+            err = _close(gs, ws)
+            _topk_ids_ok(gs, gi, ws, wi)
+            return err
+
+        def score_topk(x, xsq, q, k, *, metric="l2", n_valid=None):
+            return self._call(
+                orig["score_topk"], (x, xsq, q, k), dict(metric=metric, n_valid=n_valid),
+                lambda: (f"topk B{q.shape[0]} M{x.shape[0]} d{x.shape[1]} k{k} {metric}"
+                         + ("" if n_valid is None else f" n_valid{n_valid}")),
+                lambda out: hold_topk(x, xsq, q, k, metric, n_valid, out))
+
+        def score_matrix(x, xsq, q, *, metric="l2"):
+            return self._call(
+                orig["score_matrix"], (x, xsq, q), dict(metric=metric),
+                lambda: (f"matrix R{x.shape[0] if x.dim() == 3 else 1} B{q.shape[-2]} "
+                         f"M{x.shape[-2]} d{x.shape[-1]} {str(x.dtype)[6:]} {metric}"
+                         + (" self" if kops.is_self_pair(x, q) else "")),
+                lambda out: _close(out, kref.score_matrix(x, xsq, q, metric),
+                                   **matrix_tol(x.dtype, x.shape[-1])))
+
+        kops.gather_scores, kops.score_topk, kops.score_matrix = (
+            gather_scores, score_topk, score_matrix)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.kops, name, fn)
+
+    def unchecked(self) -> list:
+        return sorted(k for shapes in self.by_shape.values() for k in shapes
+                      if k not in self.max_err)
+
+
+def phase_dryrun(torch, kops, kref, device: str = "cuda", cells=None,
+                 jobs: int | None = None, manifest: Path = DRYRUN_MANIFEST) -> dict:
+    """The dryrun phase (PERF.md §4): ``launch.dryrun.plan_cell`` for every
+    non-skipped registry cell at one and four cards, in ``jobs`` processes
+    (traces on ``meta``, no card); as each plan comes in, every cell
+    planned to fit one card runs on the card in this process
+    (``run_cell(..., run=True)``: the index cells at both layouts, their
+    shards stacked), under a ``LaunchAudit``. Checks that every such cell
+    ran, within the card's memory, that the bf16-row gather, score_matrix
+    and score_topk were launched, and that each shape they launched at was
+    held against the plain version; writes the whole manifest to
+    ``build/``."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+
+    from repro_torch.configs import registry as reg
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.cells import all_cells
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    todo = cells or [(a, s) for a, s, skip in all_cells()
+                     if not skip and s not in DRYRUN_CUT]
+    # the plans that lead to runs on the card first; the LM plans (none
+    # fits one card) behind them, overlapping the runs
+    todo = sorted(todo, key=lambda c: reg.get_arch(c[0]).family == "lm")
+    jobs = jobs or max(1, (os.cpu_count() or 2) // 2)
+    records, ran, plan_s, run_s = {}, [], {}, {}
+    card_bytes = (torch.cuda.get_device_properties(dev).total_memory
+                  if dev.type == "cuda" else None)
+    kops.reset_launches()                       # the dryrun path starts here
+    pool = ProcessPoolExecutor(jobs, mp_context=mp.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(1,))
+    try:
+        with LaunchAudit(kops, kref) as audit:
+            futures = {pool.submit(dryrun.plan_cell, a, s): (a, s) for a, s in todo}
+            # while the first plans come: the counter's and the profiler's
+            # one-time start (~10 s on the card's host) off the first run, and
+            # cuBLAS's workspaces allocated before any cell counts from them
+            x = torch.ones((8, 8), device=dev)
+            analysis.trace(torch.mm, x, x)
+            del x
+            for fut in as_completed(futures):
+                arch, shape = futures[fut]
+                plan = fut.result()
+                plan_s[f"{arch}|{shape}"] = plan["one"]["trace_s"]
+                ipgm = reg.get_arch(arch).family == "ipgm"
+                for layout, rec in plan.items():
+                    if plan["one"]["fits"] and (layout == "one" or ipgm):
+                        t = time.perf_counter()
+                        rec = dryrun.run_cell(arch, shape, layout, run=True, device=dev,
+                                              plan=plan)
+                        if dev.type == "cuda":
+                            torch.cuda.empty_cache()
+                        run = rec["run"]
+                        run_s[f"{arch}|{shape}|{layout}"] = time.perf_counter() - t
+                        check(card_bytes is None or run["peak_allocated_bytes"] < card_bytes,
+                              f"dryrun: {arch}|{shape}|{layout} ran out of the card's memory")
+                        ran.append(f"{arch}|{shape}|{layout}")
+                    records[f"{arch}|{shape}|{layout}"] = rec
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    sync()
+    launches = dict(kops.launches)              # the dryrun path ends here
+    dryrun.save_manifest(records, manifest)
+    planned_one = sorted(k for k, r in records.items() if r["layout"] == "one" and r["fits"])
+    check(sorted(k for k in ran if k.endswith("|one")) == planned_one,
+          "dryrun: a cell planned to fit one card did not run")
+    for name in DRYRUN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the dryrun path")
+    check(not audit.unchecked(), f"dryrun: launched at shapes never held against the "
+          f"plain version: {audit.unchecked()}")
+
+    def gib(b):
+        return None if b is None else b / 2**30
+
+    table = {k: {"fits": r["fits"], "planned_gib": gib(r["planned_peak_bytes"]),
+                 "dominant": (r["roofline_s"] or {}).get("dominant"),
+                 # the peak over what the process held before the cell
+                 **({"ms": r["run"]["ms_median"],
+                     "measured_gib": gib(r["run"]["peak_allocated_bytes"]
+                                         - r["run"]["allocated_before_bytes"])
+                     if dev.type == "cuda" else None,
+                     "planned_over_measured": r["run"]["planned_over_measured"],
+                     "launches": r["run"]["launches"],
+                     **{k: r["run"][k] for k in ("beam_trips", "beam_searches")
+                        if k in r["run"]}} if "run" in r else {})}
+             for k, r in sorted(records.items())}
+    return {"cells": len(todo), "plans": len(records), "ran": len(ran),
+            "fits_one": len(planned_one),
+            "fits_four": sum(1 for r in records.values() if r["layout"] == "four" and r["fits"]),
+            "jobs": jobs, "plan_s": plan_s, "run_s": run_s, "table": table,
+            "launches": launches, "launches_by_shape": audit.by_shape,
+            "max_abs_err_by_shape": audit.max_err,
+            "manifest": str(manifest),
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,parity,sift1m,maint,durable,tiered,serve,sharded,"
-                            "models,gnn,train")
+                            "models,gnn,train,dryrun")
     ap.add_argument("--n-base", type=int, default=1_000_000)
     # 2 of the cell's 4 rounds: with the maint phase the full smoke must stay
     # near half its time limit (PERF.md §4)
@@ -3521,6 +3746,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch.cells import all_cells
 
     phases = set(args.phases.split(","))
     dev = torch.device("cuda")
@@ -3530,8 +3756,8 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernel_rows = {}
-    sift, maint, durable, tiered, serve, sharded, models, gnn, train = ({}, {}, {}, {}, {}, {},
-                                                                       {}, {}, {})
+    sift, maint, durable, tiered, serve, sharded, models, gnn, train, dry = (
+        {}, {}, {}, {}, {}, {}, {}, {}, {}, {})
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -3636,6 +3862,14 @@ def main(argv=None) -> int:
             train = phase_train(torch, kops, args.seed)
             emit({"phase": "train", "card": smi, **train})
             torch.cuda.empty_cache()
+        if "dryrun" in phases:
+            emit({"reduced": {"dryrun": {
+                "planned_outside_the_phase": [f"{a}|{s}" for a, s, skip in all_cells()
+                                              if not skip and s in DRYRUN_CUT],
+                "by": "python -m repro_torch.launch.dryrun --shape prefill_32k"}}})
+            dry = phase_dryrun(torch, kops, kref)
+            emit({"phase": "dryrun", "card": smi, **dry})
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3654,6 +3888,7 @@ def main(argv=None) -> int:
             "launches_models": models.get("launches", {}).get(name, 0),
             "launches_gnn": gnn.get("launches", {}).get(name, 0),
             "launches_train": train.get("launches", {}).get(name, 0),
+            "launches_dryrun": dry.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

@@ -13,6 +13,9 @@ past ``max_steps``; a trip after every pool has drained changes nothing (its
 lanes are NULL/-inf and sort after the pools' own -inf padding), so testing
 late gives the same pools and hop counts.
 
+``loop_counts`` counts the engine's calls (``searches``) and the trips of
+its beam loop (``trips``), on every device; the planner reads them.
+
 ``search_one``/``search_one_raw`` are B = 1 views of the batched engine.
 The per-query reference engine of the JAX package (``*_reference``, one
 node expanded per trip, a visited bitmap) is kept as the slow-path oracle
@@ -41,6 +44,8 @@ from repro_torch.kernels import ops as kernel_ops
 NEG_INF = float("-inf")
 _ENTRY_ELEMS = 1 << 25   # lanes × capacity drawn per entry-point group
 _CHECK_EVERY = 8         # beam-loop trips between host syncs on the exit test
+
+loop_counts = {"searches": 0, "trips": 0}
 
 
 class SearchResult(NamedTuple):
@@ -142,6 +147,7 @@ def beam_search(state: GraphState, queries: torch.Tensor,
         pool_ids, pool_scores, pool_exp, torch.where(sv, start_ids, NULL),
         seed_scores, K)
 
+    loop_counts["searches"] += 1
     arange_k = torch.arange(K, device=dev)
     tri = (torch.arange(C, device=dev)[:, None]
            > torch.arange(C, device=dev)[None, :]) if W > 1 else None
@@ -150,6 +156,7 @@ def beam_search(state: GraphState, queries: torch.Tensor,
             frontier_left = torch.any((pool_ids != NULL) & ~pool_exp)
             if not bool(frontier_left):
                 break
+        loop_counts["trips"] += 1
         frontier = torch.where((pool_ids != NULL) & ~pool_exp, pool_scores,
                                NEG_INF)
         top_w, wi = top_k(frontier, W)                          # [B, W]

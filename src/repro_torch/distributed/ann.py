@@ -14,12 +14,13 @@ inside every shard.
   delete: ``gid = shard · stride + local id`` → owner-masked
           ``delete_batch`` with the configured strategy.
 
-How the mesh maps onto one device. :class:`ShardMesh` holds axis sizes
-only. The S shards are stacked on a leading axis of one ``GraphState``
-(``init_sharded_state``): the layout and dtypes of JAX's stacked state, so
-checkpoints and test arrays compare directly. Position ``s`` on the stack
-is the row-major index over the shard axes (JAX's ``_shard_index``), and
-every per-shard key is ``fold_in(key, s)``. The collectives become tensor
+How the mesh maps onto one device. :class:`ShardMesh`
+(``launch/mesh.py``) holds axis sizes only. The S shards are stacked on a
+leading axis of one ``GraphState`` (``init_sharded_state``): the layout
+and dtypes of JAX's stacked state, so checkpoints and test arrays compare
+directly. Position ``s`` on the stack is the row-major index over the
+shard axes (JAX's ``_shard_index``), and every per-shard key is
+``fold_in(key, s)``. The collectives become tensor
 ops over the stacked axis: ``all_gather`` is the stack itself, ``pmax``
 over gids a max over shards, the merge a reshape to the mesh shape. A
 ``pod`` axis holds replicas in JAX and splits the query batch; the port
@@ -58,6 +59,7 @@ from repro_torch.core import delete as delete_mod
 from repro_torch.core import insert as insert_mod
 from repro_torch.core import maint, prng
 from repro_torch.core import search as search_mod
+from repro_torch.core.distances import sqnorm
 from repro_torch.core.graph import (
     DATA_FIELDS,
     NULL,
@@ -68,29 +70,13 @@ from repro_torch.core.graph import (
     next_capacity_tier,
 )
 from repro_torch.core.params import IndexParams
+from repro_torch.core.quantize import quantize_rows
 from repro_torch.core.session import PhaseTimers, consolidate_gate_crossed
 from repro_torch.core.stable import top_k
+from repro_torch.launch.mesh import ShardMesh
 from repro_torch.testing import faults
 
 _VEC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardMesh:
-    """The axis sizes of a device mesh, with no devices: the port's stand-in
-    for ``jax.make_mesh(shape, axis_names)``."""
-
-    shape: tuple[int, ...]
-    axis_names: tuple[str, ...]
-
-    def __post_init__(self):
-        if len(self.shape) != len(self.axis_names):
-            raise ValueError("one size per axis name")
-        if any(int(n) < 1 for n in self.shape):
-            raise ValueError(f"axis sizes must be positive: {self.shape}")
-
-    def size(self, axis: str) -> int:
-        return int(self.shape[self.axis_names.index(axis)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +151,22 @@ def stack_states(states: list[GraphState]) -> GraphState:
     """One stacked state from per-shard states of one shape."""
     return dataclasses.replace(states[0], **{
         f: torch.stack([getattr(st, f) for st in states]) for f in DATA_FIELDS})
+
+
+def bf16_rows(state: GraphState) -> GraphState:
+    """The state with its rows kept in bf16, as the sharded config stores
+    them (``DistParams(vec_dtype="bfloat16")``): each present row cast to
+    bf16, its sqnorm and int8 codes taken from the cast row — the bytes the
+    insert path writes for a bf16 row; the graph stays the one built over
+    the f32 rows (``reshard`` and the bulk build make f32 states, as JAX's
+    do)."""
+    vb = state.vectors.bfloat16()
+    p = state.present
+    codes, scales = quantize_rows(vb)
+    return dataclasses.replace(
+        state, vectors=vb, sqnorms=torch.where(p, sqnorm(vb), 0.0),
+        codes=torch.where(p[..., None], codes, 0),
+        scales=torch.where(p, scales, 0.0))
 
 
 def flat_view(state_stacked: GraphState) -> GraphState:

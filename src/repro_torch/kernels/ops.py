@@ -9,6 +9,15 @@ no fallback from the card to the plain version.
 ``launches`` counts, per kernel, the wrapper calls that launched it, and
 ``launches_by_shape`` splits the two gathers' count by ``(B, C)``; the CPU
 path never counts.
+
+A ``meta`` tensor takes a third route, for the planner
+(``launch/analysis.py``): no kernel and no plain version run, the outputs
+come back with their shapes and dtypes and no data. Every call, on every
+route, reports the kernel's own work to ``observer`` while the planner's
+counter has set it: FLOPs and the bytes each input read once and each
+output written once would move (``gather_work``, ``topk_work``,
+``matrix_work``; ``chip_smoke.py`` prices the same work as each kernel's
+bound).
 """
 from __future__ import annotations
 
@@ -31,6 +40,10 @@ GATHER_MIN_BLOCKS_PER_SM = 8    # csrc/gather_scores.cu kMinBlocksPerSM
 GATHER_ROWS_PER_WARP = (1, 2, 4, 8)         # fp32, up to kMaxRowsPerWarp
 GATHER_Q8_LANES_PER_ROW = 8                 # csrc/gather_scores.cu kQ8LanesPerRow
 GATHER_Q8_ROWS_PER_WARP = (4, 8, 16, 32)    # 4 lane groups × 1..kQ8MaxRowsPerGroup
+
+# ``observer(name, device_type, flops, nbytes, shape)``, set while a cost
+# counter traces (launch/analysis.py), else None
+observer = None
 
 launches = {"gather_scores": 0, "gather_scores_bf16": 0, "gather_scores_q8": 0,
             "score_topk": 0, "score_matrix": 0}
@@ -93,6 +106,12 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _report(name: str, device: torch.device, flops: float, nbytes: float,
+            shape: tuple) -> None:
+    if observer is not None:
+        observer(name, device.type, float(flops), float(nbytes), shape)
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -137,7 +156,7 @@ def gather_plan(rows: int, q8: bool, device_index: int) -> int:
 def _gather(name, fn_name, table, aux, ids, q, metric):
     B, C = ids.shape
     out = torch.empty((B, C), dtype=torch.float32, device=table.device)
-    if B * C == 0:
+    if B * C == 0 or table.device.type == "meta":
         return out
     rpw = gather_plan(B * C, name == "gather_scores_q8", table.device.index)
     rc = _fn("gather_scores", fn_name)(
@@ -151,6 +170,34 @@ def _gather(name, fn_name, table, aux, ids, q, metric):
     return out
 
 
+def gather_work(B: int, C: int, d: int, row_bytes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of a gather: each row, its id, norm or scale and
+    score once, and q once."""
+    return 2.0 * B * C * d, float(B * C * (row_bytes + 12) + B * d * 4)
+
+
+def topk_work(B: int, M: int, d: int, k: int, metric: str) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``score_topk``: the rows and queries once (xsq for
+    l2 only: csrc/score_topk.cu stages it for l2 alone), k scores and ids
+    out."""
+    return 2.0 * B * M * d, float((M * d + B * d + (M if metric == "l2" else 0)) * 4
+                                  + B * k * 8)
+
+
+def matrix_work(R: int, B: int, M: int, d: int, elem_bytes: int, q_is_x: bool
+                ) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``score_matrix``: x, xsq and the [B, M] scores once,
+    q too unless q is x."""
+    q_bytes = 0 if q_is_x else R * B * d * elem_bytes
+    return 2.0 * R * B * M * d, float(R * M * d * elem_bytes + R * M * 4 + q_bytes
+                                      + R * B * M * 4)
+
+
+def _report_gather(name: str, table, ids) -> None:
+    (B, C), d = ids.shape, table.shape[1]
+    _report(name, table.device, *gather_work(B, C, d, d * table.element_size()), (B, C))
+
+
 def gather_scores(table, tsq, ids, q, *, metric: str = "l2") -> torch.Tensor:
     """[B, C] fused gather + score of each query against its own candidate
     rows (replaces ``repro.kernels.gather_distance.gather_scores_pallas``).
@@ -160,9 +207,10 @@ def gather_scores(table, tsq, ids, q, *, metric: str = "l2") -> torch.Tensor:
     ``gather_scores_bf16`` by row type."""
     table, tsq, ids, q = _gather_args(table, tsq, ids, q, tuple(_GATHER_FN),
                                       "gather_scores")
+    name, fn_name = _GATHER_FN[table.dtype]
+    _report_gather(name, table, ids)
     if table.device.type == "cpu":
         return ref.gather_scores(table, tsq, ids, q, metric)
-    name, fn_name = _GATHER_FN[table.dtype]
     return _gather(name, fn_name, table, tsq, ids, q, metric)
 
 
@@ -172,6 +220,7 @@ def gather_scores_q8(codes, scales, ids, q, *, metric: str = "l2"
     ``repro.kernels.gather_distance.gather_scores_q8_pallas``)."""
     codes, scales, ids, q = _gather_args(codes, scales, ids, q, (torch.int8,),
                                          "gather_scores_q8")
+    _report_gather("gather_scores_q8", codes, ids)
     if codes.device.type == "cpu":
         return ref.gather_scores_q8(codes, scales, ids, q, metric)
     return _gather("gather_scores_q8", "gather_scores_q8", codes, scales, ids,
@@ -233,13 +282,14 @@ def score_topk(x, xsq, q, k: int, *, metric: str = "l2",
     M = x.shape[0]
     n_valid = M if n_valid is None else max(0, min(int(n_valid), M))
     x, xsq, q = x.contiguous(), xsq.contiguous(), q.float().contiguous()
+    B, d = q.shape
+    _report("score_topk", x.device, *topk_work(B, M, d, k, metric), (B, M, k))
     if x.device.type == "cpu":
         return ref.score_topk(x, xsq, q, k, metric, n_valid)
-    B = q.shape[0]
     dev = x.device
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    if B == 0:
+    if B == 0 or dev.type == "meta":
         return out_s, out_i
     splits = topk_splits(B, M, num_sms(dev), k)
     part_s = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
@@ -282,15 +332,17 @@ def score_matrix(x, xsq, q, *, metric: str = "l2") -> torch.Tensor:
              "score_matrix: xsq must be f32[..., M]")
     _require(len({x.device, xsq.device, q.device}) == 1,
              "score_matrix: all tensors must be on one device")
-    x, xsq, q = x.contiguous(), xsq.contiguous(), q.contiguous()
-    if x.device.type == "cpu":
-        return ref.score_matrix(x, xsq, q, metric)
     R = x.shape[0] if x.dim() == 3 else 1
     M, d = x.shape[-2], x.shape[-1]
     B = q.shape[-2]
+    _report("score_matrix", x.device,
+            *matrix_work(R, B, M, d, x.element_size(), q is x), (R, B, M))
+    x, xsq, q = x.contiguous(), xsq.contiguous(), q.contiguous()
+    if x.device.type == "cpu":
+        return ref.score_matrix(x, xsq, q, metric)
     out = torch.empty((*x.shape[:-2], B, M), dtype=torch.float32,
                       device=x.device)
-    if R * B * M == 0:
+    if R * B * M == 0 or x.device.type == "meta":
         return out
     if is_self_pair(x, q):
         rc = _fn("score_matrix", "score_matrix_self_f32")(

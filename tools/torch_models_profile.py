@@ -8,7 +8,8 @@ qwen3-1.7b at full depth with bf16 serving weights, and the full DLRM-RM2
 ``torch.profiler``: a prefill of B 4 × S 2,048, one decode step at B 4
 against the prefilled cache, the DLRM serve step at B 512 and at 262,144,
 and the retrieval step (1 query × 10^6 candidates, k 100). For each op it
-prints the wall time of an untraced run (the median of ``UNTRACED_RUNS``)
+prints the wall time of an untraced run (the median of
+``launch.analysis.UNTRACED_RUNS``; ``traced`` lives there)
 and of the traced one, the device's busy time in the trace and its share
 of the untraced wall time (the profiler's own host cost would dilute a
 share of the traced time), the kernel launches, and the kernels that take
@@ -41,7 +42,6 @@ import argparse
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,44 +53,17 @@ import torch  # noqa: E402
 from repro_torch.configs import dlrm_rm2  # noqa: E402
 from repro_torch.configs import registry as reg  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.launch.analysis import traced  # noqa: E402
 from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
-# kernel-name fragments by kind (cuBLAS/CUTLASS GEMMs; the reductions and
-# softmax of the attention; element-wise and copy kernels)
-KINDS = (("matmul", ("gemm", "gemv", "sm90_xmma", "cutlass", "splitK", "Kernel2")),
-         ("reduce_softmax", ("reduce", "softmax", "max")),
-         ("elementwise_copy", ("elementwise", "copy", "Copy", "index", "cat", "fill",
-                               "where")))
-
-
-UNTRACED_RUNS = 10
 TRAIN_BATCH = 2
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def kind_of(name: str) -> str:
-    for kind, keys in KINDS:
-        if any(k in name for k in keys):
-            return kind
-    return "other"
-
-
-def untraced_ms(fn, runs: int = UNTRACED_RUNS) -> float:
-    """Median wall time of synchronised runs of ``fn``, no profiler on."""
-    times = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    return sorted(times)[len(times) // 2]
 
 
 def event_ms(fn, runs: int = 20) -> float:
@@ -105,39 +78,6 @@ def event_ms(fn, runs: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
-
-
-def traced(fn) -> dict:
-    """One traced, synchronised run of ``fn`` (after two untraced ones),
-    beside the median untraced wall time that its busy share divides."""
-    for _ in range(2):
-        fn()
-    wall_untraced = untraced_ms(fn)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels, by_kind = [], {}
-    busy, launches = 0.0, 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy += dev_us
-            launches += ev.count
-            kernels.append((dev_us, ev.count, ev.key[:90]))
-            k = kind_of(ev.key)
-            by_kind[k] = by_kind.get(k, 0.0) + dev_us / 1e3
-    kernels.sort(reverse=True)
-    return {"wall_ms": wall_untraced, "traced_wall_ms": wall * 1e3,
-            "device_busy_ms": busy / 1e3,
-            "busy_share": busy / 1e3 / wall_untraced if wall_untraced > 0 else None,
-            "kernel_launches": launches, "device_ms_by_kind": by_kind,
-            "top": [{"kernel": k, "device_ms": us / 1e3, "count": c}
-                    for us, c, k in kernels[:8]]}
 
 
 def profile_gnn(dev) -> None:

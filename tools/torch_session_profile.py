@@ -55,6 +55,7 @@ from repro_torch.core import refine as refine_mod  # noqa: E402
 from repro_torch.core import distances, search, select  # noqa: E402
 from repro_torch.core.rebuild import bulk_knn_build  # noqa: E402
 from repro_torch.data.synthetic import make_dataset  # noqa: E402
+from repro_torch.launch.analysis import device_kernels  # noqa: E402
 
 
 NESTED = "score_matrix_in_select"   # timed inside "select", not summed
@@ -223,17 +224,13 @@ def profile_ops(ops: dict, prepare: dict | None = None) -> dict:
         busy = 0.0
         launches = 0
         gather_us, gather_n = 0.0, 0
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-                busy += dev_us
-                launches += ev.count
-                kernels.append((dev_us, ev.count, ev.key[:80]))
-                if any(k in ev.key for k in GATHER_KERNELS):
-                    gather_us += dev_us
-                    gather_n += ev.count
+        for dev_us, count, key in device_kernels(prof):
+            busy += dev_us
+            launches += count
+            kernels.append((dev_us, count, key[:80]))
+            if any(k in key for k in GATHER_KERNELS):
+                gather_us += dev_us
+                gather_n += count
         kernels.sort(reverse=True)
         prof_out[name] = {
             "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
@@ -251,6 +248,7 @@ def sharded_main(n: int, n_ops: int) -> int:
     from repro_torch.core.graph import NULL
     from repro_torch.distributed import (DistParams, ShardedSession, ShardMesh,
                                          init_sharded_state, reshard)
+    from repro_torch.distributed.ann import bf16_rows
 
     S, per = 8, 512
     data = make_dataset("sift", n + per * n_ops + 1000, seed=0)
@@ -268,7 +266,7 @@ def sharded_main(n: int, n_ops: int) -> int:
     placed, _ = reshard(src, src_params, params, S)
     del src
     sess = ShardedSession(dp, ShardMesh(*chip_smoke.SHARD_MESH), seed=0,
-                          state=chip_smoke.bf16_rows(torch, placed))
+                          state=bf16_rows(placed))
     del placed
     torch.cuda.synchronize()
     emit({"place_s": time.perf_counter() - t, "n_base": n, "shards": S,
