@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,gnn
     python3 chip_smoke.py --phases build,train
     python3 chip_smoke.py --phases build,dryrun
+    python3 chip_smoke.py --phases build,sharded4    # four cards
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
@@ -102,7 +103,9 @@ Phases, each printing one JSON line:
            checkpointed in parallel, and --recover from the checkpoints;
   sharded  cell sift1m-sharded: the base placed by elastic.reshard (hash
            routing) into 8 shards of 2^17 slots (mesh 4 × 2) stacked on the
-           card, rows in bf16 (the sharded config's vec_dtype); 2 rounds of
+           card, in a one-rank NCCL group (its start timed; the query's
+           all_gather and the insert's all_reduce run), rows in bf16 (the
+           sharded config's vec_dtype); 2 rounds of
            512 routed inserts, 4 fan-out ops of 256 held-out queries, 512
            GLOBAL deletes and a flush; 2,048 MASK deletes and consolidate;
            a lockstep grow to 2^18 and 512 more inserts; a reshard to 4
@@ -114,6 +117,15 @@ Phases, each printing one JSON line:
            loop (whose launches are not counted); rates, consolidate, grow
            and reshard seconds, recall@10 of 1,000 held-out queries against
            score_topk over every alive row, peak memory, launches;
+  sharded4 (not in the default phases; needs 4 cards, else exits 1) cell
+           sift1m-sharded-4: the same stream on 4 NCCL ranks, one a card,
+           each holding and linking 2 of the 8 shards, with the checks on
+           every rank and one query op and one insert round traced for each
+           card's busy share; then the stream stacked on cuda:0 as the
+           control: every query op's ids and scores, every insert's gids
+           and the gathered state before and after the reshard byte-equal
+           to it; per-rank rates, peak memory, collective ms per op,
+           placement seconds and launches;
   models   cell dlrm-rm2-serve: the full dlrm_rm2.config() (26 tables ×
            2^20 rows × 64, fp32, drawn on the card from a seed), logits
            held to a float64 loop reference on 16 samples (padded ids
@@ -255,12 +267,14 @@ def check(cond, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(all_cards: bool = False) -> str | list[str]:
+    """The first card's (or every card's) name and power limit."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    lines = out.stdout.strip().splitlines()
+    return lines if all_cards else lines[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2269,11 +2283,14 @@ def phase_serve(torch, n_base: int, n_closed: int = 2048, n_open: int = 2048,
 
 
 # ---------------------------------------------------------------------------
-# the sharded index: 10^6 vectors in 8 shards on one card
+# the sharded index: 10^6 vectors in 8 shards, on one card or one rank a card
 # ---------------------------------------------------------------------------
 
 SHARD_MESH = ((4, 2), ("data", "model"))
 SHARD_QUERY_OPS, SHARD_QUERY_BATCH = 4, 256
+SHARD_RANKS = 4                 # the sharded4 phase: one rank a card
+RANK_TIMEOUT_S = 900            # every group's deadline: NCCL's and the join's
+SHARDED_KERNELS = ("gather_scores_bf16", "gather_scores", "score_topk", "score_matrix")
 
 
 def shard_capacity(n_base: int, per_round: int, n_shards: int) -> int:
@@ -2282,19 +2299,56 @@ def shard_capacity(n_base: int, per_round: int, n_shards: int) -> int:
     return 1 << max(10, (-(-n_base // n_shards) + per_round).bit_length())
 
 
-def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
-                  device: str = "cuda") -> dict:
-    """Cell sift1m-sharded: the base placed by ``elastic.reshard`` (hash
-    routing) into 8 shards of a (4, 2) mesh stacked on one card, rows in
-    bf16; ``rounds`` rounds of ``per_round`` routed inserts, 4 fan-out query
-    ops of 256, ``per_round`` GLOBAL deletes and a flush; a MASK stretch of
-    4·``per_round`` deletes and ``consolidate``; a lockstep grow to twice the
-    per-shard capacity and one more insert round; ``reshard`` to 4 shards
-    and a query op. Checks acked inserts (unique gid, owner ``route % 8``,
-    alive with their row, also through the grow and the reshard remap), no
-    answer non-alive, I1–I7 per shard after every round, no tombstone left,
-    nothing refused, and the first query op of each round bit-equal between
-    the folded fan-out and the per-shard loop plus merge."""
+def state_digest(torch, st) -> dict:
+    """sha256 of every field's bytes, with its shape and dtype."""
+    import hashlib
+
+    from repro_torch.core.graph import DATA_FIELDS
+
+    out = {}
+    for f in DATA_FIELDS:
+        t = getattr(st, f).contiguous()
+        h = hashlib.sha256(f"{tuple(t.shape)} {t.dtype}".encode())
+        h.update(memoryview(t.view(torch.uint8).cpu().numpy()))
+        out[f] = h.hexdigest()
+    return out
+
+
+def busy_of(prof, wall: float) -> dict:
+    """The card's busy share of ``wall`` seconds from a profile: compute
+    kernels, and NCCL's kernels (which spin while a peer is late) apart."""
+    from repro_torch.launch.analysis import device_kernels
+
+    busy = nccl = 0.0
+    launches = 0
+    for dev_us, count, key in device_kernels(prof):
+        if "nccl" in key.lower():
+            nccl += dev_us / 1e6
+        else:
+            busy += dev_us / 1e6
+            launches += count
+    return {"wall_s": wall, "busy_share": busy / wall, "nccl_share": nccl / wall,
+            "kernel_launches": launches}
+
+
+def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
+                   device: str = "cuda", group=None, *, record: bool = False) -> dict:
+    """Cell sift1m-sharded's stream on this process's block of the 8 shards
+    of a (4, 2) mesh (all of them when ``group`` is None), rows in bf16: the
+    base placed by ``elastic.reshard`` (hash routing; each process links
+    only its own shards); ``rounds`` rounds of ``per_round`` routed
+    inserts, 4 fan-out query ops of 256, ``per_round`` GLOBAL deletes and a
+    flush; a MASK stretch of 4·``per_round`` deletes and ``consolidate``; a
+    lockstep grow to twice the per-shard capacity and one more insert
+    round; ``reshard`` to 4 shards and a query op. Checks acked inserts
+    (unique gid, owner ``route % 8``, alive with their row, also through
+    the grow and the reshard remap), no answer non-alive, I1–I7 per shard
+    after every round, no tombstone left, nothing refused, and the first
+    query op of each round bit-equal between the folded fan-out and the
+    per-shard loop plus merge; with a group each process checks its own
+    shards. ``record`` adds one query op and one insert round under the
+    profiler (the busy share) and returns every answer and gid and the
+    gathered state's digests before and after the reshard."""
     import numpy as np
 
     from repro_torch.core import metrics, prng
@@ -2303,36 +2357,42 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.distributed import (DistParams, ShardedSession, ShardMesh,
                                          init_sharded_state, make_query_step,
-                                         reshard)
+                                         reshard, shard_block, topk_union)
     from repro_torch.distributed.ann import bf16_rows, shard_view
     from repro_torch.kernels import ops as kops
 
     t_phase = time.perf_counter()
-    dev = torch.device(device)
+    dev = group.device if group is not None else torch.device(device)
     on_card = dev.type == "cuda"
 
     def wait():
         if on_card:
             torch.cuda.synchronize()
 
+    def coll_s():
+        return group.collective_s if group is not None else 0.0
+
     mesh = ShardMesh(*SHARD_MESH)
     S = 8
-    n_ins = (rounds + 1) * per_round
+    n_ins = (rounds + 1 + record) * per_round
     n_mask = 4 * per_round
     data = make_dataset("sift", n_base + n_ins + 1000, seed=0)
     base, fresh, held = data[:n_base], data[n_base:n_base + n_ins], data[n_base + n_ins:]
     stream_q = make_dataset("sift", rounds * SHARD_QUERY_OPS * SHARD_QUERY_BATCH
-                            + SHARD_QUERY_BATCH, seed=1)
+                            + (1 + record) * SHARD_QUERY_BATCH, seed=1)
     cap = shard_capacity(n_base, per_round, S)
     params = sift_params(cap, strategy="global", max_capacity=2 * cap)
     dp = DistParams(index=params, vec_dtype="bfloat16")
     stride = dp.gid_stride()
+    block = shard_block(dp, mesh, group)
     rng = np.random.default_rng(0)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     out = {"n_base": n_base, "shards": S, "mesh": list(SHARD_MESH[0]),
+           "shards_here": [block.start, block.stop],
            "capacity_per_shard": cap, "gid_stride": stride,
            "vec_dtype": dp.vec_dtype}
+    rec = {"queries": [], "inserts": []}
     excluded = dict.fromkeys(kops.launches, 0)   # launches of the comparisons
     kops.reset_launches()                       # the sharded path starts here
 
@@ -2343,7 +2403,7 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
                              ShardMesh((1, 1), ("data", "model")), device=dev)
     src.vectors[0, :n_base] = torch.from_numpy(base).to(dev)
     src.alive[0, :n_base] = True
-    placed, remap = reshard(src, src_params, params, S)
+    placed, remap = reshard(src, src_params, params, S, shards=block)
     del src
     state = bf16_rows(placed)
     del placed
@@ -2353,11 +2413,17 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     check(bool((base_gid >= 0).all()), "sharded: a base row was not placed")
     check(bool((base_gid // stride == np.arange(n_base) % S).all()),
           "sharded: a base row was placed off its hash owner")
-    sess = ShardedSession(dp, mesh, seed=0, state=state)
+    sess = ShardedSession(dp, mesh, seed=0, state=state, group=group)
     del state
     live = np.zeros(S * stride, bool)           # host book of alive gids
     live[base_gid] = True
     acked = {}                                  # gid → row of ``fresh``
+
+    def owned(g, str_x):
+        """Which gids of ``g`` lie on this process's shards, and the global
+        index of its first shard."""
+        blk = shard_block(sess.dp, sess.mesh, group)
+        return (g // str_x >= blk.start) & (g // str_x < blk.stop), blk.start
 
     def verify(tag):
         st = sess.state
@@ -2365,10 +2431,14 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
         str_x = sess.dp.gid_stride()
         alive = st.alive.cpu().numpy()
         gl = np.flatnonzero(live)
-        check(int(alive.sum()) == gl.size and bool(alive[gl // str_x, gl % str_x].all()),
+        own, s0 = owned(gl, str_x)
+        gl = gl[own]
+        check(int(alive.sum()) == gl.size
+              and bool(alive[gl // str_x - s0, gl % str_x].all()),
               f"sharded {tag}: the alive set differs from the host's book")
         keep = np.array(sorted(acked), np.int64)
-        sh = torch.as_tensor(keep // str_x, device=dev)
+        keep = keep[owned(keep, str_x)[0]]
+        sh = torch.as_tensor(keep // str_x - s0, device=dev)
         lid = torch.as_tensor(keep % str_x, device=dev)
         check(bool(st.alive[sh, lid].all()), f"sharded {tag}: an acked insert is not alive")
         want = torch.from_numpy(fresh[[acked[g] for g in keep.tolist()]]).to(dev)
@@ -2383,31 +2453,47 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
         g = gids.cpu().numpy()
         g = g[g != NULL]
         str_x = sess.dp.gid_stride()
-        dev_alive = sess.state.alive[torch.as_tensor(g // str_x, device=dev),
-                                     torch.as_tensor(g % str_x, device=dev)]
+        own, s0 = owned(g, str_x)
+        dev_alive = sess.state.alive[torch.as_tensor(g[own] // str_x - s0, device=dev),
+                                     torch.as_tensor(g[own] % str_x, device=dev)]
         check(bool(live[g].all()) and bool(dev_alive.all()),
               f"sharded {tag}: an answer holds a deleted or non-alive gid")
 
+    def query(q, tag):
+        """One timed fan-out op; answers checked and recorded."""
+        wait()
+        c0, t = coll_s(), time.perf_counter()
+        gids, scores = sess.query(q)
+        wait()
+        dt = time.perf_counter() - t
+        answers_alive(gids, tag)
+        rec["queries"].append((gids.cpu().numpy(), scores.cpu().numpy()))
+        return gids, scores, dt, coll_s() - c0
+
     def recall(tag):
         """recall@10 of one fan-out op of the held-out queries against the
-        exact top-10 over every alive row (score_topk on the flat table)."""
+        exact top-10 over every alive row: score_topk over each process's
+        alive rows, the lists gathered and merged."""
         st = sess.state
         capx = st.vectors.shape[1]
         str_x = sess.dp.gid_stride()
+        s0 = shard_block(sess.dp, sess.mesh, group).start
         idx = torch.nonzero(st.alive.reshape(-1)).flatten()
         x = st.vectors.reshape(-1, st.dim)[idx].float().contiguous()
         xsq = st.sqnorms.reshape(-1)[idx].contiguous()
         qh = torch.from_numpy(held).to(dev)
-        _, pos = kops.score_topk(x, xsq, qh, 10, metric=st.metric)
+        top_s, pos = kops.score_topk(x, xsq, qh, 10, metric=st.metric)
         flat = idx[pos.long()]
-        true_gid = torch.div(flat, capx, rounding_mode="floor") * str_x + flat % capx
+        true_gid = ((s0 + torch.div(flat, capx, rounding_mode="floor")) * str_x
+                    + flat % capx)
+        if group is not None:
+            B = qh.shape[0]
+            cat_s = group.all_gather(top_s[None]).permute(1, 0, 2).reshape(B, -1)
+            cat_g = group.all_gather(true_gid[None]).permute(1, 0, 2).reshape(B, -1)
+            _, true_gid = topk_union(cat_s.contiguous(), cat_g.contiguous(), 10)
         del x, xsq
-        wait()
-        t = time.perf_counter()
-        found, _ = sess.query(held)
-        wait()
-        out[f"held_query_s_{tag}"] = time.perf_counter() - t
-        answers_alive(found, f"recall {tag}")
+        found, _, dt, _ = query(held, f"recall {tag}")
+        out[f"held_query_s_{tag}"] = dt
         out[f"recall10_{tag}"] = float(metrics.recall_at_k(
             found[:, :10].long(), true_gid, 10))
 
@@ -2415,9 +2501,10 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
         rows = fresh[lo:lo + per_round]
         route = n_base + lo + np.arange(per_round)
         wait()
-        t = time.perf_counter()
+        c0, t = coll_s(), time.perf_counter()
         g = sess.insert(rows, route).cpu().numpy()
         op_s[timed_as] += time.perf_counter() - t
+        op_coll[timed_as] += coll_s() - c0
         check(bool((g != NULL).all()), f"sharded {tag}: an insert was refused")
         check(bool((g // sess.dp.gid_stride() == route % S).all()),
               f"sharded {tag}: an insert landed off its owner route % 8")
@@ -2425,9 +2512,12 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
               f"sharded {tag}: a gid was handed out twice")
         live[g] = True
         acked.update(zip(g.tolist(), range(lo, lo + per_round)))
+        rec["inserts"].append(g)
 
     recall("before")
-    op_s = {"query": 0.0, "insert": 0.0, "insert_after_grow": 0.0, "delete": 0.0}
+    op_s = {"query": 0.0, "insert": 0.0, "insert_after_grow": 0.0, "delete": 0.0,
+            "traced": 0.0}
+    op_coll = dict.fromkeys(op_s, 0.0)
     fold_checked = 0
     qi = 0
     for rnd in range(rounds):
@@ -2435,19 +2525,16 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
         for j in range(SHARD_QUERY_OPS):
             q = stream_q[qi:qi + SHARD_QUERY_BATCH]
             qi += SHARD_QUERY_BATCH
-            wait()
-            t = time.perf_counter()
-            gids, scores = sess.query(q)
-            wait()
-            op_s["query"] += time.perf_counter() - t
-            answers_alive(gids, f"round {rnd}")
+            gids, scores, dt, dc = query(q, f"round {rnd}")
+            op_s["query"] += dt
+            op_coll["query"] += dc
             if j == 0:
                 # the plain version: one beam_search per shard, then the merge
                 before = dict(kops.launches)
                 # the session's op key: its seed chain at the op's index
-                key = prng.fold_in(prng.prng_key(0, device=device),
+                key = prng.fold_in(prng.prng_key(0, device=dev),
                                    sess._op_counter - 1)
-                pi, ps = make_query_step(sess.dp, mesh, fold=False)(
+                pi, ps = make_query_step(sess.dp, mesh, fold=False, group=group)(
                     sess.state, q, key)
                 for k in kops.launches:
                     excluded[k] += kops.launches[k] - before[k]
@@ -2457,14 +2544,29 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
                 fold_checked += 1
         dels = rng.choice(np.flatnonzero(live), per_round, replace=False).astype(np.int32)
         wait()
-        t = time.perf_counter()
+        c0, t = coll_s(), time.perf_counter()
         sess.delete(dels)
         sess.flush()
         op_s["delete"] += time.perf_counter() - t
+        op_coll["delete"] += coll_s() - c0
         live[dels] = False
         for g in dels.tolist():
             acked.pop(g, None)
         verify(f"round {rnd}")
+
+    if record:
+        # one query op and one insert round under the profiler
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        wait()
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            query(stream_q[qi:qi + SHARD_QUERY_BATCH], "traced")
+            qi += SHARD_QUERY_BATCH
+            insert_round(rounds * per_round, "traced", timed_as="traced")
+            wait()
+            wall = time.perf_counter() - t
+        out["busy"] = busy_of(prof, wall)
+        del prof
 
     # ---- MASK stretch, then consolidation ----
     sess.strategy = "mask"
@@ -2477,12 +2579,12 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     live[dels] = False
     for g in dels.tolist():
         acked.pop(g, None)
-    check(int(sess.state.masked.sum()) == n_mask, "sharded: MASK left no tombstones")
+    check(sess.n_masked() == n_mask, "sharded: MASK left no tombstones")
     t = time.perf_counter()
     n_cons = sess.consolidate()
     sess.flush()
     out["consolidate_s"] = time.perf_counter() - t
-    check(n_cons == n_mask and int(sess.state.masked.sum()) == 0,
+    check(n_cons == n_mask and sess.n_masked() == 0,
           "sharded: a tombstone remains after consolidate")
     sess.strategy = "global"
     verify("consolidate")
@@ -2492,17 +2594,25 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     sess.grow(2 * cap)
     wait()
     out["grow_s"] = time.perf_counter() - t
-    check(sess.state.vectors.shape[:2] == (S, 2 * cap), "sharded: grow")
-    insert_round(rounds * per_round, "after grow", timed_as="insert_after_grow")
+    check(sess.state.vectors.shape[:2] == (len(block), 2 * cap), "sharded: grow")
+    insert_round((rounds + record) * per_round, "after grow",
+                 timed_as="insert_after_grow")
     sess.flush()
     verify("grow")
     check(sess.timers.n_refused == 0, "sharded: inserts were refused")
     timers = sess.timers.to_dict()
+    out["peak_mem_gib_stream"] = peak_gib(torch) if on_card else None
 
     # ---- reshard 8 → 4 shards at 2·cap slots each ----
     new_params = sift_params(2 * cap, strategy="global", max_capacity=2 * cap)
+    new_dp, new_mesh = DistParams(index=new_params), ShardMesh((2, 2), ("data", "model"))
     t = time.perf_counter()
-    new_state, remap = reshard(sess.state, sess.dp.index, new_params, 4)
+    whole = sess.gather_state()
+    if record and (group is None or group.rank == 0):
+        rec["digest_before_reshard"] = state_digest(torch, whole)
+    new_state, remap = reshard(whole, sess.dp.index, new_params, 4,
+                               shards=shard_block(new_dp, new_mesh, group))
+    del whole
     wait()
     out["reshard_s"] = time.perf_counter() - t
     old_live = np.flatnonzero(live)
@@ -2511,17 +2621,11 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     live[:] = False
     live[new_gid] = True
     acked = {int(remap[g]): row for g, row in acked.items()}
-    sess = ShardedSession(DistParams(index=new_params), ShardMesh((2, 2), ("data", "model")),
-                          seed=1, state=new_state)
+    sess = ShardedSession(new_dp, new_mesh, seed=1, state=new_state, group=group)
     del new_state
     verify("reshard")
-    q = stream_q[qi:qi + SHARD_QUERY_BATCH]
-    wait()
-    t = time.perf_counter()
-    gids, _ = sess.query(q)
-    wait()
-    out["resharded_query_s"] = time.perf_counter() - t
-    answers_alive(gids, "after reshard")
+    _, _, out["resharded_query_s"], _ = query(stream_q[qi:qi + SHARD_QUERY_BATCH],
+                                               "after reshard")
     recall("after")
     wait()
     launches = {k: kops.launches[k] - excluded[k] for k in kops.launches}
@@ -2529,18 +2633,102 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     out["launches_excluded_comparisons"] = excluded
     out["gather_launches_by_shape"] = gather_shape_split(kops)
     out["fold_equal_ops"] = fold_checked
+    if record:
+        whole = sess.gather_state()
+        if group is None or group.rank == 0:
+            rec["digest_after_reshard"] = state_digest(torch, whole)
+        del whole
+        out["record"] = rec
     n_q = rounds * SHARD_QUERY_OPS * SHARD_QUERY_BATCH
+    n_ops = {"query": rounds * SHARD_QUERY_OPS, "insert": rounds, "delete": rounds}
     out["items_per_s"] = {"query": n_q / op_s["query"],
                           "insert": rounds * per_round / op_s["insert"],
                           "insert_after_grow": per_round / op_s["insert_after_grow"],
                           "delete_global": rounds * per_round / op_s["delete"]}
+    if group is not None:
+        out["group"] = {"backend": "nccl" if on_card else "gloo", "world": group.world,
+                        "rank": group.rank, "collective_s": group.collective_s,
+                        "n_collectives": group.n_collectives,
+                        "collective_ms_per_op": {k: op_coll[k] / n * 1e3
+                                                 for k, n in n_ops.items()}}
     out["timers"] = timers
-    out["peak_mem_gib"] = peak_gib(torch)
+    out["peak_mem_gib"] = peak_gib(torch) if on_card else None
     out["phase_s"] = time.perf_counter() - t_phase
-    if on_card:
-        for name in ("gather_scores_bf16", "gather_scores", "score_topk", "score_matrix"):
-            check(launches[name] > 0, f"kernel {name} was not launched on the sharded path")
     return out
+
+
+def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
+                  device: str = "cuda") -> dict:
+    """Cell sift1m-sharded on one card: ``sharded_stream`` over all 8
+    shards, in a one-rank group (NCCL on the card, gloo on the CPU), so
+    the rank path's collectives and NCCL's start run on one card."""
+    from repro_torch.launch.mesh import one_rank
+
+    t0 = time.perf_counter()
+    with one_rank(device, timeout_s=RANK_TIMEOUT_S) as group:
+        group_up_s = time.perf_counter() - t0
+        out = sharded_stream(torch, n_base, per_round, rounds, device, group)
+    out["group"]["group_up_s"] = group_up_s
+    if torch.device(device).type == "cuda":
+        for name in SHARDED_KERNELS:
+            check(out["launches"][name] > 0,
+                  f"kernel {name} was not launched on the sharded path")
+    return out
+
+
+def sharded_rank(group, n_base: int, per_round: int, rounds: int) -> dict:
+    """One rank of the sharded4 phase (started by ``run_on_ranks``)."""
+    import torch
+
+    out = sharded_stream(torch, n_base, per_round, rounds, group=group, record=True)
+    out["card"] = torch.cuda.get_device_name(group.device) if group.device.type == "cuda" else "cpu"
+    return out
+
+
+def phase_sharded4(torch, n_base: int, per_round: int, rounds: int = 2,
+                   device: str = "cuda") -> dict:
+    """Cell sift1m-sharded-4: ``sharded_stream`` on 4 ranks, one a card
+    (NCCL), each holding 2 of the 8 shards and linking only those; then
+    the same stream stacked on one device (``cuda:0``) as the control.
+    Every rank's query answers and insert gids, and the gathered state
+    before and after the reshard, must be byte-equal to the control's."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import run_on_ranks
+
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < SHARD_RANKS:
+        raise SmokeFailure(f"sharded4 needs {SHARD_RANKS} cards, "
+                           f"{torch.cuda.device_count()} found")
+    t0 = time.perf_counter()
+    per_rank = run_on_ranks(sharded_rank, SHARD_RANKS, device=device,
+                            timeout_s=RANK_TIMEOUT_S, args=(n_base, per_round, rounds))
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    control = sharded_stream(torch, n_base, per_round, rounds, device, record=True)
+    control_s = time.perf_counter() - t0
+    want = control.pop("record")
+    for r, got in enumerate(per_rank):
+        rec = got.pop("record")
+        check(len(rec["queries"]) == len(want["queries"])
+              and all(np.array_equal(a[0], b[0]) and a[1].tobytes() == b[1].tobytes()
+                      for a, b in zip(rec["queries"], want["queries"])),
+              f"sharded4: rank {r}'s answers differ from the one-card control")
+        check(len(rec["inserts"]) == len(want["inserts"])
+              and all(np.array_equal(a, b) for a, b in zip(rec["inserts"], want["inserts"])),
+              f"sharded4: rank {r}'s insert gids differ from the one-card control")
+        if r == 0:
+            for tag in ("digest_before_reshard", "digest_after_reshard"):
+                diff = [f for f in want[tag] if rec[tag][f] != want[tag][f]]
+                check(not diff, f"sharded4: the gathered state ({tag}) differs from "
+                                f"the one-card control in {diff}")
+        if torch.device(device).type == "cuda":
+            for name in SHARDED_KERNELS:
+                check(got["launches"][name] > 0,
+                      f"kernel {name} was not launched on rank {r} of the sharded4 path")
+    return {"ranks": per_rank, "control": control, "ranks_s": ranks_s,
+            "control_s": control_s, "equal_query_ops": len(want["queries"]),
+            "launches": {k: sum(got["launches"][k] for got in per_rank)
+                         for k in per_rank[0]["launches"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -3758,6 +3946,7 @@ def main(argv=None) -> int:
     kernel_rows = {}
     sift, maint, durable, tiered, serve, sharded, models, gnn, train, dry = (
         {}, {}, {}, {}, {}, {}, {}, {}, {}, {})
+    sharded4 = {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -3838,6 +4027,17 @@ def main(argv=None) -> int:
             sharded = phase_sharded(torch, args.n_base, shard_round)
             emit({"phase": "sharded", "card": smi, **sharded})
             torch.cuda.empty_cache()
+        if "sharded4" in phases:
+            shard_round = max(1, args.per_round // 4)
+            if args.n_base != 1_000_000 or shard_round != 512:
+                emit({"reduced": {"sharded4": {"n_base": args.n_base,
+                                               "per_round": shard_round,
+                                               "of": {"n_base": 1_000_000,
+                                                      "per_round": 512}}}})
+            sharded4 = phase_sharded4(torch, args.n_base, shard_round)
+            emit({"phase": "sharded4", "card": smi, "nvidia_smi_all": nvidia_smi_line(all_cards=True),
+                  **sharded4})
+            torch.cuda.empty_cache()
         if "models" in phases:
             emit({"reduced": {"models": {
                 arch: {"layers": n or "all", "batch": B, "prompt": S, "decode_steps": n_steps,
@@ -3885,6 +4085,7 @@ def main(argv=None) -> int:
             "launches_tiered": tiered.get("launches", {}).get(name, 0),
             "launches_serve": serve.get("launches", {}).get(name, 0),
             "launches_sharded": sharded.get("launches", {}).get(name, 0),
+            "launches_sharded4": sharded4.get("launches", {}).get(name, 0),
             "launches_models": models.get("launches", {}).get(name, 0),
             "launches_gnn": gnn.get("launches", {}).get(name, 0),
             "launches_train": train.get("launches", {}).get(name, 0),

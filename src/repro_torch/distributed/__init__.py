@@ -1,4 +1,4 @@
-"""The sharded index on one device — ``repro.distributed``."""
+"""The sharded index, on one device or one rank per card — ``repro.distributed``."""
 from repro_torch.distributed.ann import (
     DistParams,
     ShardedSession,
@@ -6,11 +6,13 @@ from repro_torch.distributed.ann import (
     distributed_delete,
     distributed_insert,
     distributed_query,
+    gather_state,
     init_sharded_state,
     make_consolidate_step,
     make_delete_step,
     make_insert_step,
     make_query_step,
+    shard_block,
     topk_union,
 )
 from repro_torch.distributed.compression import (
@@ -31,6 +33,7 @@ __all__ = [
     "distributed_insert",
     "distributed_query",
     "gather_alive",
+    "gather_state",
     "init_sharded_state",
     "make_consolidate_step",
     "make_delete_step",
@@ -38,6 +41,7 @@ __all__ = [
     "make_query_step",
     "quantize_int8",
     "reshard",
+    "shard_block",
     "topk_union",
     "wire_bytes_saved",
 ]

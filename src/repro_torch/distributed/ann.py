@@ -1,4 +1,5 @@
-"""Sharded online ANN index — ``repro.distributed.ann`` on one device.
+"""Sharded online ANN index — ``repro.distributed.ann``, on one device or
+one rank per card.
 
 Layout: shard-per-device subgraphs, as in JAX. Each shard owns ``cap``
 slots and an independent proximity graph over them; there are no
@@ -43,6 +44,21 @@ interact and the pool is the visited set, so the folded call gives the
 per-shard calls' ids and scores bit for bit, for about one op's launches
 instead of S ops'. ``make_query_step(..., fold=False)`` keeps the
 per-shard loop as the plain version the tests hold the fold against.
+
+One rank per card. Every step builder and ``ShardedSession`` take
+``group``, a ``launch.mesh.CardGroup`` of W ranks (W divides S). Rank r
+holds the contiguous block of global shards ``[r·S/W, (r+1)·S/W)`` as its
+local stack; every per-shard key, owner test and gid offset uses the
+global shard index, so each rank computes the stack's bytes for its
+block. The collectives of JAX's ``shard_map`` programs become
+``torch.distributed`` calls: the query ``all_gather``s the per-shard top-k
+lists into ``[S, B, K]`` in rank order before the same merge, the insert
+takes an ``all_reduce(MAX)`` over the announced gids, delete and
+consolidate need none. Inputs and results are replicated on every rank,
+as JAX's ``P()``. Every host decision (growth, consolidation passes, the
+counts behind them) reads gathered per-shard counts, so every rank takes
+it alike and enters the same collectives. ``group=None`` is the stacked
+layout above, the plain version the rank path is held against.
 """
 from __future__ import annotations
 
@@ -73,7 +89,7 @@ from repro_torch.core.params import IndexParams
 from repro_torch.core.quantize import quantize_rows
 from repro_torch.core.session import PhaseTimers, consolidate_gate_crossed
 from repro_torch.core.stable import top_k
-from repro_torch.launch.mesh import ShardMesh
+from repro_torch.launch.mesh import CardGroup, ShardMesh
 from repro_torch.testing import faults
 
 _VEC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -111,19 +127,45 @@ def num_shards(dp: DistParams, mesh: ShardMesh) -> int:
     return math.prod(mesh.size(a) for a in dp.shard_axes)
 
 
+def shard_block(dp: DistParams, mesh: ShardMesh,
+                group: CardGroup | None = None) -> range:
+    """The global shards this process holds: all S without a group, the
+    rank's contiguous block of S/W with one (W must divide S)."""
+    S = num_shards(dp, mesh)
+    if group is None:
+        return range(S)
+    if S % group.world:
+        raise ValueError(f"{group.world} ranks do not divide {S} shards")
+    n = S // group.world
+    return range(group.rank * n, (group.rank + 1) * n)
+
+
 def init_sharded_state(dp: DistParams, mesh: ShardMesh, *,
-                       device=None) -> GraphState:
+                       device=None, group: CardGroup | None = None
+                       ) -> GraphState:
     """The stacked per-shard states ``[S, cap_local, ...]`` (``size``,
     ``clock`` and ``tclock`` become ``[S]``), on the card unless ``device``
-    says otherwise."""
+    says otherwise; with a group, the rank's block ``[S/W, ...]`` on its
+    device."""
+    dev = group.device if group is not None else resolve_device(device)
     one = init_graph(
         dp.index.capacity, dp.index.dim, d_out=dp.index.d_out,
         d_in=dp.index.eff_d_in, metric=dp.index.metric,
-        dtype=dp.torch_vec_dtype, device=resolve_device(device))
-    S = num_shards(dp, mesh)
+        dtype=dp.torch_vec_dtype, device=dev)
+    n = len(shard_block(dp, mesh, group))
     return dataclasses.replace(one, **{
-        f: getattr(one, f)[None].expand(S, *getattr(one, f).shape).clone()
+        f: getattr(one, f)[None].expand(n, *getattr(one, f).shape).clone()
         for f in DATA_FIELDS})
+
+
+def gather_state(state: GraphState, group: CardGroup | None) -> GraphState:
+    """The global stack ``[S, ...]`` from every rank's block, on every rank
+    (the stack itself without a group): checkpoints in JAX's layout, and
+    the checks."""
+    if group is None:
+        return state
+    return dataclasses.replace(state, **{
+        f: group.all_gather(getattr(state, f)) for f in DATA_FIELDS})
 
 
 def shard_count(state_stacked: GraphState) -> int:
@@ -226,27 +268,29 @@ def _merge(scores: torch.Tensor, gids: torch.Tensor, dp: DistParams,
 
 
 def _shard_starts(state_stacked: GraphState, key: torch.Tensor, B: int,
-                  num_starts: int) -> torch.Tensor:
+                  num_starts: int, s0: int = 0) -> torch.Tensor:
     """Entry points ``[S, B, starts]`` of each shard over its own slots,
-    lane i of shard s from ``fold_in(fold_in(key, s), i)``; local ids."""
+    lane i of global shard s from ``fold_in(fold_in(key, s), i)``, the
+    stack's first shard being global shard ``s0``; local ids."""
     return torch.stack([
-        search_mod.batch_entry_points(shard_view(state_stacked, s),
-                                      prng.fold_in(key, s), B, num_starts)
-        for s in range(shard_count(state_stacked))])
+        search_mod.batch_entry_points(shard_view(state_stacked, j),
+                                      prng.fold_in(key, s0 + j), B, num_starts)
+        for j in range(shard_count(state_stacked))])
 
 
 def fanout_search(state_stacked: GraphState, queries: torch.Tensor,
                   key: torch.Tensor, params: IndexParams, *, fold: bool = True,
-                  flat: GraphState | None = None
+                  flat: GraphState | None = None, s0: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every shard's search of every query: (local ids, scores), each
     ``[S, B, pool]``. ``fold=True`` runs one ``beam_search`` over the S·B
     lanes on ``flat`` (``flat_view(state_stacked)`` unless given); the
-    plain version runs one per shard."""
+    plain version runs one per shard. ``s0`` is the global index of the
+    stack's first shard (a rank's block)."""
     sp = params.search
     S, cap = state_stacked.vectors.shape[:2]
     B = queries.shape[0]
-    starts = _shard_starts(state_stacked, key, B, sp.num_starts)
+    starts = _shard_starts(state_stacked, key, B, sp.num_starts, s0)
     if not fold:
         res = [search_mod.beam_search(shard_view(state_stacked, s), queries,
                                       starts[s], sp) for s in range(S)]
@@ -264,25 +308,30 @@ def fanout_search(state_stacked: GraphState, queries: torch.Tensor,
 
 
 def _check_shards(state_stacked: GraphState, dp: DistParams,
-                  mesh: ShardMesh) -> int:
-    S = num_shards(dp, mesh)
-    if shard_count(state_stacked) != S:
+                  mesh: ShardMesh, group: CardGroup | None) -> tuple[int, int]:
+    """(S, global index of the stack's first shard)."""
+    block = shard_block(dp, mesh, group)
+    if shard_count(state_stacked) != len(block):
         raise ValueError(f"state has {shard_count(state_stacked)} shards, "
-                         f"the mesh {S}")
-    return S
+                         f"this process holds {len(block)}")
+    return num_shards(dp, mesh), block.start
 
 
-def make_query_step(dp: DistParams, mesh: ShardMesh, *, fold: bool = True):
+def make_query_step(dp: DistParams, mesh: ShardMesh, *, fold: bool = True,
+                    group: CardGroup | None = None):
     """The fan-out query step: ``step(state, queries f32[B, dim], key,
     flat=None) → (gids i32[B, k], scores f32[B, k])``, k the pool size.
     With a pod axis the batch splits into equal pod slices, each run as
-    its own program. ``flat`` is a cached ``flat_view`` of the state."""
+    its own program. ``flat`` is a cached ``flat_view`` of the state. With
+    a group each rank searches its block and the per-shard lists are
+    ``all_gather``ed before the merge; every rank returns the answer."""
     stride = dp.gid_stride()
     pods = mesh.size(dp.pod_axis) if dp.pod_axis else 1
 
     def step(state_stacked: GraphState, queries, key: torch.Tensor, *,
              flat: GraphState | None = None):
-        S = _check_shards(state_stacked, dp, mesh)
+        _, s0 = _check_shards(state_stacked, dp, mesh, group)
+        n = shard_count(state_stacked)
         dev = state_stacked.device
         q = torch.as_tensor(queries, dtype=torch.float32).to(dev)
         key = key.to(dev)
@@ -291,13 +340,15 @@ def make_query_step(dp: DistParams, mesh: ShardMesh, *, fold: bool = True):
         if q.shape[0] % pods:
             raise ValueError(f"batch {q.shape[0]} does not split over "
                              f"{pods} pods")
-        shard_off = (torch.arange(S, device=dev, dtype=torch.int32)
+        shard_off = (torch.arange(s0, s0 + n, device=dev, dtype=torch.int32)
                      * stride)[:, None, None]
         out_i, out_s = [], []
         for qp in q.chunk(pods) if pods > 1 else (q,):
             lids, scores = fanout_search(state_stacked, qp, key, dp.index,
-                                         fold=fold, flat=flat)
+                                         fold=fold, flat=flat, s0=s0)
             gids = torch.where(lids != NULL, lids + shard_off, NULL)
+            if group is not None:   # JAX's all_gather of the per-shard lists
+                scores, gids = group.all_gather(scores), group.all_gather(gids)
             top_s, top_i = _merge(scores, gids, dp, mesh, dp.index.search.pool_size)
             out_i.append(top_i)
             out_s.append(top_s)
@@ -306,78 +357,87 @@ def make_query_step(dp: DistParams, mesh: ShardMesh, *, fold: bool = True):
     return step
 
 
-def make_insert_step(dp: DistParams, mesh: ShardMesh):
+def make_insert_step(dp: DistParams, mesh: ShardMesh, *,
+                     group: CardGroup | None = None):
     """Routed batch insert: ``step(state, vectors f32[B, dim], route i32[B],
     key) → (state, gids i32[B])``, in place; NULL where the owner was
-    full."""
+    full. With a group the ranks' announcements meet in an
+    ``all_reduce(MAX)``."""
     stride = dp.gid_stride()
 
     def step(state_stacked: GraphState, vecs, route, key: torch.Tensor):
-        S = _check_shards(state_stacked, dp, mesh)
+        S, s0 = _check_shards(state_stacked, dp, mesh, group)
         dev = state_stacked.device
         vecs = torch.as_tensor(vecs, dtype=torch.float32).to(dev)
         route = torch.as_tensor(route).to(dev, torch.int64)
         key = key.to(dev)
         gids = torch.full((vecs.shape[0],), NULL, dtype=torch.int32, device=dev)
-        for s in range(S):
+        for j in range(shard_count(state_stacked)):
+            s = s0 + j
             mine = (route % S) == s
-            view = shard_view(state_stacked, s)
+            view = shard_view(state_stacked, j)
             out, ids = insert_mod.insert_batch_impl(
                 view, vecs, mine, prng.fold_in(key, s), dp.index)
-            _write_back(state_stacked, s, view, out)
+            _write_back(state_stacked, j, view, out)
             g = torch.where(ids != NULL, ids + s * stride, NULL)
             # the owner announces its gid, everyone else NULL: the max is
             # exact since real gids are >= 0 (JAX's pmax)
             gids = torch.maximum(gids, torch.where(mine, g, NULL)
                                  .to(torch.int32))
+        if group is not None:
+            group.all_reduce(gids, "max")
         return state_stacked, gids
 
     return step
 
 
-def make_delete_step(dp: DistParams, mesh: ShardMesh, strategy: str):
+def make_delete_step(dp: DistParams, mesh: ShardMesh, strategy: str, *,
+                     group: CardGroup | None = None):
     """Owner-masked delete of global ids: ``step(state, gids i32[B], key) →
-    state``, in place."""
+    state``, in place. Each rank repairs its own block; no collective."""
     stride = dp.gid_stride()
 
     def step(state_stacked: GraphState, gids, key: torch.Tensor):
-        S = _check_shards(state_stacked, dp, mesh)
+        _, s0 = _check_shards(state_stacked, dp, mesh, group)
         dev = state_stacked.device
         gids = torch.as_tensor(gids).to(dev, torch.int64)
         key = key.to(dev)
         owner = torch.div(gids, stride, rounding_mode="floor")
         lids = torch.remainder(gids, stride).to(torch.int32)
-        for s in range(S):
+        for j in range(shard_count(state_stacked)):
+            s = s0 + j
             # with growth armed the stride exceeds the live tier: local ids
             # are valid only below the current per-shard capacity
             valid = (gids != NULL) & (owner == s) & (lids < dp.index.capacity)
-            view = shard_view(state_stacked, s)
+            view = shard_view(state_stacked, j)
             out = delete_mod.delete_batch(view, lids, valid,
                                           prng.fold_in(key, s), strategy,
                                           dp.index)
-            _write_back(state_stacked, s, view, out)
+            _write_back(state_stacked, j, view, out)
         return state_stacked
 
     return step
 
 
-def make_consolidate_step(dp: DistParams, mesh: ShardMesh):
+def make_consolidate_step(dp: DistParams, mesh: ShardMesh, *,
+                          group: CardGroup | None = None):
     """One per-shard compaction pass: ``step(state, key) → state``, in
     place. Every shard compacts its ``consolidate_chunk`` lowest-id
     tombstones (a partly valid or empty frame where it has fewer); the
-    host loops passes until the most loaded shard is drained."""
+    host loops passes until the most loaded shard is drained. Each rank
+    compacts its own block; no collective."""
     mp = dp.index.maintenance
     chunk = mp.consolidate_chunk or mp.delete_chunk
 
     def step(state_stacked: GraphState, key: torch.Tensor):
-        S = _check_shards(state_stacked, dp, mesh)
+        _, s0 = _check_shards(state_stacked, dp, mesh, group)
         key = key.to(state_stacked.device)
-        for s in range(S):
-            view = shard_view(state_stacked, s)
+        for j in range(shard_count(state_stacked)):
+            view = shard_view(state_stacked, j)
             tomb, tv = mask_to_slots(view.masked, chunk)
             out, _ = consolidate_mod.consolidate_chunk_impl(
-                view, tomb, tv, prng.fold_in(key, s), dp.index)
-            _write_back(state_stacked, s, view, out)
+                view, tomb, tv, prng.fold_in(key, s0 + j), dp.index)
+            _write_back(state_stacked, j, view, out)
         return state_stacked
 
     return step
@@ -417,22 +477,40 @@ class ShardedSession:
     next write. Refused inserts come back as NULL gids and are counted into
     ``timers.n_refused`` at the next ``flush``. ``state`` starts the session
     from a stacked state of the mesh's shard count and ``dp``'s capacity
-    (for example one ``elastic.reshard`` placed)."""
+    (for example one ``elastic.reshard`` placed).
+
+    With ``group`` (one rank per card) every rank runs the same calls on
+    replicated inputs and holds its block of shards in ``state``; a given
+    ``state`` is either the global stack, of which the rank keeps its block,
+    or the block itself (``elastic.reshard(..., shards=...)``).
+    ``gather_state()`` returns the global stack. The timers are the rank's
+    own: every rank counts each op once."""
 
     def __init__(self, dp: DistParams, mesh: ShardMesh, *,
                  strategy: str | None = None, seed: int = 0, device=None,
-                 state: GraphState | None = None):
+                 state: GraphState | None = None,
+                 group: CardGroup | None = None):
         self.dp = dp
         self.mesh = mesh
+        self.group = group
         self._strategy = (strategy if strategy is not None
                           else dp.index.maintenance.strategy)
         self._build_steps()
+        block = shard_block(dp, mesh, group)
         fresh = state is None
         if fresh:
-            state = init_sharded_state(dp, mesh, device=device)
-        elif (shard_count(state) != num_shards(dp, mesh)
-              or state.capacity != dp.index.capacity):
-            raise ValueError("state does not match the mesh and capacity")
+            state = init_sharded_state(dp, mesh, device=device, group=group)
+        elif state.capacity != dp.index.capacity:
+            raise ValueError("state does not match the capacity")
+        elif shard_count(state) == num_shards(dp, mesh) != len(block):
+            state = dataclasses.replace(state, **{
+                f: getattr(state, f)[block.start:block.stop].clone()
+                for f in DATA_FIELDS})
+        elif shard_count(state) != len(block):
+            raise ValueError("state does not match the mesh")
+        if group is not None and state.device != group.device:
+            raise ValueError(f"state on {state.device}, the rank's card is "
+                             f"{group.device}")
         self.state = state
         self._base_key = prng.prng_key(seed, device=self.state.device)
         self._op_counter = 0
@@ -453,16 +531,18 @@ class ShardedSession:
         # state is measured at the first insert
         self._free_floor = dp.index.capacity if fresh else 0
         if not fresh:
-            self._masked_hint = int(self.state.masked.sum())
-            self._present_floor = int(self.state.present.sum())
+            self._masked_hint = int(self._per_shard_masked().sum())
+            self._present_floor = int(self._per_shard_present().sum())
 
     def _build_steps(self) -> None:
         """(Re)build the four steps for the current capacity tier."""
-        self._query_step = make_query_step(self.dp, self.mesh)
-        self._insert_step = make_insert_step(self.dp, self.mesh)
+        g = self.group
+        self._query_step = make_query_step(self.dp, self.mesh, group=g)
+        self._insert_step = make_insert_step(self.dp, self.mesh, group=g)
         self._delete_step = make_delete_step(self.dp, self.mesh,
-                                             self._strategy)
-        self._consolidate_step = make_consolidate_step(self.dp, self.mesh)
+                                             self._strategy, group=g)
+        self._consolidate_step = make_consolidate_step(self.dp, self.mesh,
+                                                       group=g)
 
     @property
     def device(self) -> torch.device:
@@ -477,7 +557,8 @@ class ShardedSession:
         # the delete step bakes the strategy in: rebuild it, so that
         # reassignment behaves like the core session's per-op strategy
         self._strategy = value
-        self._delete_step = make_delete_step(self.dp, self.mesh, value)
+        self._delete_step = make_delete_step(self.dp, self.mesh, value,
+                                             group=self.group)
 
     def _op_key(self) -> torch.Tensor:
         if self._window_t0 is None:
@@ -551,13 +632,25 @@ class ShardedSession:
         faults.crash_point("sharded-post-dispatch")
 
     # -- capacity growth (lockstep over shards) ----------------------------
+    def _per_shard(self, mask: torch.Tensor) -> np.ndarray:
+        """Per-shard counts of ``mask`` over every global shard, gathered
+        from every rank (synchronises): the only counts host decisions
+        read, so every rank decides alike."""
+        counts = mask.sum(dim=1)
+        if self.group is not None:
+            counts = self.group.all_gather(counts)
+        return counts.cpu().numpy()
+
     def _per_shard_present(self) -> np.ndarray:
-        """Per-shard present counts (synchronises)."""
-        return self.state.present.sum(dim=1).cpu().numpy()
+        return self._per_shard(self.state.present)
 
     def _per_shard_masked(self) -> np.ndarray:
-        """Per-shard tombstone counts (synchronises)."""
-        return self.state.masked.sum(dim=1).cpu().numpy()
+        return self._per_shard(self.state.masked)
+
+    def gather_state(self) -> GraphState:
+        """The global stacked state, on every rank (the state itself without
+        a group)."""
+        return gather_state(self.state, self.group)
 
     def _ensure_room(self, n: int) -> None:
         """Per-shard grow/consolidate gate at the insert boundary: drain
@@ -663,7 +756,7 @@ class ShardedSession:
         # exact check (synchronises), then fire if the share really crossed
         per_shard = self._per_shard_masked()
         self._masked_hint = int(per_shard.sum())
-        self._present_floor = int(self.state.present.sum())
+        self._present_floor = int(self._per_shard_present().sum())
         if not consolidate_gate_crossed(
                 thr, self._masked_hint, self._present_floor):
             return 0
@@ -690,4 +783,7 @@ class ShardedSession:
         return self.timers
 
     def n_alive(self) -> int:
-        return int(self.state.alive.sum())
+        return int(self._per_shard(self.state.alive).sum())
+
+    def n_masked(self) -> int:
+        return int(self._per_shard_masked().sum())

@@ -5,8 +5,10 @@ member quantizes its tensor with its own max-abs scale, the int8 payloads
 sum exactly as int32, and the mean dequantizes with the mean scale — 4×
 fewer wire bytes on a data-parallel all-reduce. On one device the members
 are the leading axis of a stacked tensor and the ``psum`` is a sum over
-it; every member draws its rounding noise from the same key, as every
-device of JAX's ``shard_map`` program does.
+it; with a ``CardGroup`` each rank is one member (JAX's in-``shard_map``
+form) and the sum is an ``all_reduce``. Every member draws its rounding
+noise from the same key, as every device of JAX's ``shard_map`` program
+does.
 
 The *deterministic* per-row quantizer of the index's vector codes lives in
 ``core.quantize`` (no key: ``codes == quantize_rows(vectors)`` must be
@@ -73,26 +75,35 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compressed_psum(grads: Any, key: torch.Tensor) -> Any:
-    """int8-compressed mean over the leading (member) axis of every leaf.
+def compressed_psum(grads: Any, key: torch.Tensor, *, group=None) -> Any:
+    """int8-compressed mean over the members of every leaf.
 
-    Each leaf is ``[n, ...]``, one slice per member; the result has the
-    leaf's trailing shape (the value every member holds after JAX's
-    ``psum``). Leaf i quantizes with ``fold_in(key, i)`` (that is
-    ``jax.random.split(key, n_leaves)[i]``), every member with the same
-    key. The int32 sum is exact; the scales sum in fp32 in member order.
+    Without a group each leaf is ``[n, ...]``, one slice per member; with a
+    ``launch.mesh.CardGroup`` each rank holds its own member's leaves and
+    the group's ranks are the members. The result has the member's shape
+    (the value every member holds after JAX's ``psum``). Leaf i quantizes
+    with ``fold_in(key, i)`` (that is ``jax.random.split(key,
+    n_leaves)[i]``), every member with the same key. The int32 sum is
+    exact in any order (an ``all_reduce`` across ranks); the fp32 scales
+    sum in member order (``all_gather``ed, not reduced in the ring's
+    order), so both forms give the same bits.
     """
     leaves, rebuild = _flatten(grads)
     out = []
     for i, leaf in enumerate(leaves):
         k = prng.fold_in(key.to(leaf.device), i)
-        n = leaf.shape[0]
-        q_sum, s_sum = None, None
-        for m in range(n):
-            q, scale = quantize_int8(leaf[m], k)
-            q = q.to(torch.int32)
-            q_sum = q if q_sum is None else q_sum + q
-            s_sum = scale if s_sum is None else s_sum + scale
+        if group is not None:
+            q, scale = quantize_int8(leaf, k)
+            q_sum = group.all_reduce(q.to(torch.int32), "sum")
+            scales = group.all_gather(scale.reshape(1))
+        else:
+            members = [quantize_int8(x, k) for x in leaf]
+            q_sum = sum(q.to(torch.int32) for q, _ in members)
+            scales = torch.stack([scale for _, scale in members])
+        n = scales.shape[0]
+        s_sum = scales[0]
+        for m in range(1, n):
+            s_sum = s_sum + scales[m]
         # mean of the members' dequantized values ≈ (Σq · mean scale) / n
         mean_scale = s_sum / n
         out.append((q_sum.float() * mean_scale / n).to(leaf.dtype))

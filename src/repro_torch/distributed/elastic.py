@@ -5,7 +5,9 @@ fleet). Vectors are re-routed by the same hash rule and each new shard is
 re-bulk-linked by the exact-kNN constructor (``core.rebuild.bulk_knn_build``,
 which runs on ``score_topk`` and ``score_matrix``): edges are shard-local,
 so only graphs, not data, are recomputed. The work stays on the state's
-device; only the id remap comes back to the host.
+device; only the id remap comes back to the host. Each new shard links on
+its own, so ``shards=`` builds only some of them: a rank of a sharded
+session links its own block, and every rank gets the same global remap.
 """
 from __future__ import annotations
 
@@ -51,14 +53,18 @@ def gather_alive(state_stacked: GraphState, *, stride: int | None = None
 
 def reshard(state_stacked: GraphState, old_params: IndexParams,
             new_params: IndexParams, n_new_shards: int, *,
-            route: str = "hash") -> tuple[GraphState, np.ndarray]:
+            route: str = "hash", shards: range | None = None
+            ) -> tuple[GraphState, np.ndarray]:
     """Re-shard a stacked index to ``n_new_shards`` shards of
     ``new_params.capacity`` slots, on the state's device.
 
     Returns (new stacked state, host remap old_gid → new_gid, -1 where
     none). Old gids decode with the old config's stride, new ones encode
     with the new config's, so growth-armed sessions translate the ids they
-    handed out. Each new shard is bulk-linked on its own (f32 rows)."""
+    handed out. Each new shard is bulk-linked on its own (f32 rows).
+    ``shards`` (a range of new shard indices, all by default) links only
+    those: the state stacks just them, byte-equal to the same shards of
+    the full call, and the remap is still the global one."""
     dev = state_stacked.device
     old_stride = _stride_of(old_params, int(state_stacked.vectors.shape[1]))
     new_stride = _stride_of(new_params, new_params.capacity)
@@ -74,18 +80,21 @@ def reshard(state_stacked: GraphState, old_params: IndexParams,
     remap = np.full(int(old_gids.max()) + 1 if n else 1, -1, np.int64)
     old_host = old_gids.cpu().numpy()
     owner_host = owner.cpu().numpy()
+    counts = np.bincount(owner_host, minlength=n_new_shards)
+    if counts.max(initial=0) > cap:
+        s = int(counts.argmax())
+        raise ValueError(
+            f"shard {s} would hold {int(counts[s])} > capacity {cap}; "
+            f"raise capacity or shard count")
     for s in range(n_new_shards):
+        remap[old_host[owner_host == s]] = s * new_stride + np.arange(counts[s])
+    for s in range(n_new_shards) if shards is None else shards:
         mine = owner == s
-        count = int(mine.sum())
-        if count > cap:
-            raise ValueError(
-                f"shard {s} would hold {count} > capacity {cap}; "
-                f"raise capacity or shard count")
+        count = int(counts[s])
         padded = torch.zeros((cap, new_params.dim), dtype=torch.float32,
                              device=dev)
         padded[:count] = vecs[mine]
         valid = torch.arange(cap, device=dev) < count
         shard_states.append(
             rebuild.bulk_knn_build(padded, valid, new_params, device=dev))
-        remap[old_host[owner_host == s]] = s * new_stride + np.arange(count)
     return stack_states(shard_states), remap

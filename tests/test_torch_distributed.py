@@ -6,8 +6,9 @@ JAX's real ``make_{insert,query,delete,consolidate}_step`` and
 process's device count is fixed at its first JAX init): mesh (4, 2), a
 (2, 2, 2) pod mesh, capacity 64, d 16, integer-valued vectors, f32 and bf16.
 The port runs the same inputs in-process on its stacked single-device
-layout. Integer state, vectors and gids are byte-equal; scores meet the
-gather tolerance of ``tests/test_kernels.py``. Then, on the port alone
+layout, and on 2 and 4 gloo ranks (one process a rank, each holding its
+block of shards). Integer state, vectors and gids are byte-equal; scores
+meet the gather tolerance of ``tests/test_kernels.py``. Then, on the port alone
 with Gaussian data, every assertion of ``tests/test_distributed.py``; the
 folded fan-out against the per-shard loop; ``topk_union`` against JAX's
 on ties, ±0 and -inf.
@@ -28,7 +29,7 @@ from repro.distributed.ann import topk_union as jtopk_union
 from repro_torch.core import prng
 from repro_torch.core.graph import DATA_FIELDS, NULL, tensor_to_numpy
 from repro_torch.core.health import check_health
-from repro_torch.core.params import IndexParams, MaintenanceParams, SearchParams
+from repro_torch.core.params import IndexParams, SearchParams
 from repro_torch.distributed import ann
 from repro_torch.distributed.ann import (
     DistParams,
@@ -41,7 +42,8 @@ from repro_torch.distributed.ann import (
     make_query_step,
 )
 from repro_torch.distributed.compression import compressed_psum
-from repro_torch.testing import faults
+from repro_torch.launch.mesh import run_on_ranks
+from repro_torch.testing import faults, ranks
 from torch_parity import int_vectors
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -165,15 +167,7 @@ print("RESULT ok")
 
 
 def _params(cap, **mkw):
-    return IndexParams(capacity=cap, dim=DIM, d_out=8,
-                       search=SearchParams(pool_size=16, max_steps=32,
-                                           num_starts=2),
-                       maintenance=MaintenanceParams(**mkw))
-
-
-def _pick(g, idx):
-    d = g[idx].astype(np.int32)
-    return np.concatenate([d, np.asarray([-1, 7 * 64 + 60], np.int32)])
+    return ranks.small_params(cap, DIM, **mkw)
 
 
 def _inputs():
@@ -185,79 +179,13 @@ def _inputs():
 
 
 def _run_port(inp) -> dict:
-    """The JAX script's stream on the port, on the CPU."""
-    X, Q, route = inp["X"], inp["Q"], inp["route"]
-    res = {}
-    K = prng.prng_key
-
-    def dump(tag, st):
-        # a copy: the steps update the state in place
-        for f in DATA_FIELDS:
-            a = tensor_to_numpy(getattr(st, f)).copy()
-            res[tag + "/" + f] = a.view(np.uint16) if a.dtype.itemsize == 2 else a
-
-    def query(tag, out):
-        res[tag + "/ids"], res[tag + "/scores"] = (t.numpy() for t in out)
-
-    mesh = ShardMesh((4, 2), ("data", "model"))
-    dp = DistParams(index=_params(64, delete_chunk=16, consolidate_chunk=16))
-    ins = make_insert_step(dp, mesh)
-    qry = make_query_step(dp, mesh)
-    st, g1 = ins(init_sharded_state(dp, mesh, device="cpu"), X[:96],
-                 route[:96], K(0))
-    dump("ins1", st)
-    res["ins1/gids"] = g1.numpy()
-    query("q1", qry(st, Q, K(1)))
-    st, g2 = ins(st, X[96:192], route[96:192], K(2))
-    dump("ins2", st)
-    res["ins2/gids"] = g2.numpy()
-    g = np.concatenate([g1.numpy(), g2.numpy()])
-    st = make_delete_step(dp, mesh, "global")(st, _pick(g, np.arange(0, 84, 6)), K(3))
-    dump("del_global", st)
-    st = make_delete_step(dp, mesh, "local")(st, _pick(g, np.arange(1, 85, 6)), K(4))
-    dump("del_local", st)
-    st = make_delete_step(dp, mesh, "mask")(st, _pick(g, np.arange(2, 86, 6)), K(5))
-    dump("del_mask", st)
-    cons = make_consolidate_step(dp, mesh)
-    st = cons(st, K(6))
-    st = cons(st, K(7))
-    dump("cons", st)
-    query("q2", qry(st, Q, K(8)))
-
-    dpg = DistParams(index=_params(16, strategy="mask", insert_chunk=32,
-                                   delete_chunk=32, consolidate_threshold=0.25,
-                                   consolidate_chunk=16, max_capacity=128))
-    sess = ShardedSession(dpg, mesh, strategy="mask", seed=3, device="cpu")
-    h1 = sess.insert(X[:96], route[:96]).numpy()
-    h2 = sess.insert(X[96:192], route[96:192]).numpy()
-    sess.delete(_pick(np.concatenate([h1, h2]), np.arange(0, 120, 2)))
-    sess.flush()
-    query("growq", sess.query(Q))
-    dump("grow", sess.state)
-    res["grow/gids"] = np.concatenate([h1, h2])
-    res["grow/counters"] = np.asarray([
-        sess.dp.index.capacity, sess.timers.n_grows,
-        sess.timers.n_consolidations, sess.timers.n_consolidated,
-        sess.timers.n_refused])
-
-    dpb = DistParams(index=_params(64), vec_dtype="bfloat16")
-    st, gb = make_insert_step(dpb, mesh)(
-        init_sharded_state(dpb, mesh, device="cpu"), X[:96], route[:96], K(0))
-    dump("bf16", st)
-    res["bf16/gids"] = gb.numpy()
-    query("bf16q", make_query_step(dpb, mesh)(st, Q, K(1)))
-
+    """The JAX script's stream on the port, on the CPU: the sharded steps
+    and session in the stacked layout (``testing/ranks.py``, the stream the
+    rank cases run too), then the int8-compressed mean over 8 members."""
+    res = ranks.parity_stream(None, inp, device="cpu")
     c = compressed_psum({"w": torch.from_numpy(inp["Gw"]),
-                         "b": torch.from_numpy(inp["Gb"])}, K(11))
+                         "b": torch.from_numpy(inp["Gb"])}, prng.prng_key(11))
     res["psum/w"], res["psum/b"] = c["w"].numpy(), c["b"].numpy()
-
-    mesh3 = ShardMesh((2, 2, 2), ("pod", "data", "model"))
-    dp3 = DistParams(index=_params(64), pod_axis="pod")
-    st, g3 = make_insert_step(dp3, mesh3)(
-        init_sharded_state(dp3, mesh3, device="cpu"), X[:80], route[:80], K(0))
-    dump("pod", st)
-    res["pod/gids"] = g3.numpy()
-    query("podq", make_query_step(dp3, mesh3)(st, Q, K(1)))
     return res
 
 
@@ -323,6 +251,63 @@ def test_compressed_psum_matches_jax(runs, leaf):
     jres, tres = runs
     np.testing.assert_allclose(tres[f"psum/{leaf}"], jres[f"psum/{leaf}"],
                                rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# one rank per shard block: W gloo processes on the CPU, the same stream
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda w: f"world{w}")
+def rank_runs(runs, request):
+    """The stream on W ranks (each rank holds S/W shards of every mesh),
+    every rank's results; spawned processes, each group with a deadline."""
+    out = run_on_ranks(ranks.parity_stream, request.param, device="cpu",
+                       timeout_s=150, args=(_inputs(),))
+    return request.param, out
+
+
+@pytest.mark.parametrize("tag", STATE_TAGS)
+def test_ranks_state_byte_equal(runs, rank_runs, tag):
+    """The W-rank global state equals JAX's 8-device state and the stack's,
+    byte for byte, with the same gids."""
+    jres, tres = runs
+    world, per_rank = rank_runs
+    got = per_rank[0]
+    diff = [f for f in DATA_FIELDS
+            if not np.array_equal(jres[f"{tag}/{f}"], got[f"{tag}/{f}"])]
+    assert diff == [], f"world {world} {tag}: fields differ from JAX: {diff}"
+    for f in DATA_FIELDS:
+        assert got[f"{tag}/{f}"].tobytes() == tres[f"{tag}/{f}"].tobytes(), f
+    if f"{tag}/gids" in jres:
+        np.testing.assert_array_equal(got[f"{tag}/gids"], jres[f"{tag}/gids"])
+
+
+@pytest.mark.parametrize("tag", QUERY_TAGS)
+def test_ranks_query_matches_jax(runs, rank_runs, tag):
+    """Ids equal JAX's, scores within the stacked test's tolerance of
+    JAX's and bit-equal to the stack's."""
+    jres, tres = runs
+    _, per_rank = rank_runs
+    got = per_rank[0]
+    np.testing.assert_array_equal(got[f"{tag}/ids"], jres[f"{tag}/ids"])
+    g, w = got[f"{tag}/scores"], jres[f"{tag}/scores"]
+    assert ((g == -np.inf) == (w == -np.inf)).all()
+    m = np.isfinite(w)
+    np.testing.assert_allclose(g[m], w[m], rtol=1e-4, atol=1e-3)
+    assert g.tobytes() == tres[f"{tag}/scores"].tobytes()
+
+
+def test_ranks_counters_and_replicated_results(runs, rank_runs):
+    """Lockstep growth and consolidation take the stack's decisions, and
+    every rank returns the same answers and global state."""
+    jres, _ = runs
+    _, per_rank = rank_runs
+    np.testing.assert_array_equal(per_rank[0]["grow/counters"],
+                                  jres["grow/counters"])
+    for other in per_rank[1:]:
+        assert other.keys() == per_rank[0].keys()
+        for k, v in per_rank[0].items():
+            assert np.array_equal(other[k], v), k
 
 
 # ---------------------------------------------------------------------------

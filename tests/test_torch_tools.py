@@ -1,8 +1,9 @@
 """Subprocess smoke over the port's counterparts of ``examples/``: each
 ``tools/torch_*.py`` driver runs as a user runs it, a fresh interpreter on
 the CPU (``--device cpu``) at a small size, as ``tests/test_examples.py``
-runs the JAX examples. The four start together and are read one test
-each."""
+runs the JAX examples. They start together and are read one test each;
+the sharded index runs twice, stacked in one process and on two gloo
+ranks."""
 from __future__ import annotations
 
 import os
@@ -19,15 +20,19 @@ TOOLS = {
     "torch_distributed_index": [],
     "torch_train_lm": ["--steps", "40"],
 }
+# run name → (tool, arguments beyond --device cpu)
+RUNS = {**{name: (name, args) for name, args in TOOLS.items()},
+        "torch_distributed_index_ranks2": ("torch_distributed_index",
+                                           ["--ranks", "2"])}
 
 
 @pytest.fixture(scope="module")
 def runs():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
     procs = {name: subprocess.Popen(
-        [sys.executable, str(ROOT / "tools" / f"{name}.py"), "--device", "cpu", *args],
+        [sys.executable, str(ROOT / "tools" / f"{tool}.py"), "--device", "cpu", *args],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for name, args in TOOLS.items()}
+        for name, (tool, args) in RUNS.items()}
     out = {}
     try:
         for name, proc in procs.items():
@@ -65,6 +70,18 @@ def test_distributed_index_runs(runs):
     out = _ok(runs, "torch_distributed_index")
     assert "inserted: 400 across 8 shards" in out
     assert "alive after GLOBAL delete of 100: 300" in out
+
+
+def test_distributed_index_on_two_ranks_prints_what_one_process_does(runs):
+    """``--ranks 2`` (two gloo processes, four shards each) prints the same
+    inserted count, query ids and alive count as the stacked run."""
+    one = _ok(runs, "torch_distributed_index").splitlines()
+    two = _ok(runs, "torch_distributed_index_ranks2").splitlines()
+    for head in ("inserted:", "query results (global ids):",
+                 "alive after GLOBAL delete of 100:"):
+        line = [ln for ln in one if ln.startswith(head)]
+        assert len(line) == 1 and line == [ln for ln in two if ln.startswith(head)], head
+    assert "(rank 0 of 2)" in "\n".join(two)
 
 
 def test_train_lm_preempts_and_resumes(runs):
