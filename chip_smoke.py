@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,train
     python3 chip_smoke.py --phases build,dryrun
     python3 chip_smoke.py --phases build,sharded4    # four cards
+    python3 chip_smoke.py --phases build,pods4       # four cards, 2 replicas
 
 Phases, each printing one JSON line:
   device   the card's name and power limit;
@@ -126,6 +127,18 @@ Phases, each printing one JSON line:
            and the gathered state before and after the reshard byte-equal
            to it; per-rank rates, peak memory, collective ms per op,
            placement seconds and launches;
+  pods4    (not in the default phases; needs 4 cards, else exits 1) cell
+           sift1m-pods-4: the same stream on a (2, 4, 2) pod mesh over 4
+           NCCL ranks, each pod a replica of the 8 shards on 2 cards, each
+           card holding and linking 4 of its pod's shards, each query op of
+           256 split into 128 a pod, writes applied by every replica, the
+           reshard tail to (2, 2, 2); then the pod loop on the same mesh
+           stacked on cuda:0 as the control: every query op's ids and
+           scores and every insert's gids on every rank, and each pod's
+           gathered state before and after the reshard, byte-equal to it;
+           per-rank rates, collective ms per op for the replica group and
+           the pod-peer group apart, peak memory, placement seconds, busy
+           and NCCL shares, launches;
   models   cell dlrm-rm2-serve: the full dlrm_rm2.config() (26 tables ×
            2^20 rows × 64, fp32, drawn on the card from a seed), logits
            held to a float64 loop reference on 16 samples (padded ids
@@ -2288,7 +2301,8 @@ def phase_serve(torch, n_base: int, n_closed: int = 2048, n_open: int = 2048,
 
 SHARD_MESH = ((4, 2), ("data", "model"))
 SHARD_QUERY_OPS, SHARD_QUERY_BATCH = 4, 256
-SHARD_RANKS = 4                 # the sharded4 phase: one rank a card
+SHARD_RANKS = 4                 # the sharded4 and pods4 phases: one rank a card
+SHARD_PODS = 2                  # the pods4 phase: 2 replicas of the 8 shards
 RANK_TIMEOUT_S = 900            # every group's deadline: NCCL's and the join's
 SHARDED_KERNELS = ("gather_scores_bf16", "gather_scores", "score_topk", "score_matrix")
 
@@ -2332,9 +2346,13 @@ def busy_of(prof, wall: float) -> dict:
 
 
 def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
-                   device: str = "cuda", group=None, *, record: bool = False) -> dict:
+                   device: str = "cuda", group=None, *, record: bool = False,
+                   pods: int = 1) -> dict:
     """Cell sift1m-sharded's stream on this process's block of the 8 shards
-    of a (4, 2) mesh (all of them when ``group`` is None), rows in bf16: the
+    of a (4, 2) mesh (all of them when ``group`` is None), rows in bf16; with
+    ``pods`` > 1 on a (pods, 4, 2) mesh, each pod a replica of the 8 shards
+    (on its own ranks with a group of two or more; the pod loop on one
+    replica without), each query op split over the pods. The
     base placed by ``elastic.reshard`` (hash routing; each process links
     only its own shards); ``rounds`` rounds of ``per_round`` routed
     inserts, 4 fan-out query ops of 256, ``per_round`` GLOBAL deletes and a
@@ -2348,7 +2366,8 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
     per-shard loop plus merge; with a group each process checks its own
     shards. ``record`` adds one query op and one insert round under the
     profiler (the busy share) and returns every answer and gid and the
-    gathered state's digests before and after the reshard."""
+    gathered state's digests before and after the reshard (on the first
+    rank of each pod: one replica's)."""
     import numpy as np
 
     from repro_torch.core import metrics, prng
@@ -2357,7 +2376,8 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.distributed import (DistParams, ShardedSession, ShardMesh,
                                          init_sharded_state, make_query_step,
-                                         reshard, shard_block, topk_union)
+                                         pod_groups, pod_of, reshard,
+                                         shard_block, topk_union)
     from repro_torch.distributed.ann import bf16_rows, shard_view
     from repro_torch.kernels import ops as kops
 
@@ -2369,10 +2389,12 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
         if on_card:
             torch.cuda.synchronize()
 
-    def coll_s():
-        return group.collective_s if group is not None else 0.0
+    pod_axes = ((pods,), ("pod",)) if pods > 1 else ((), ())
 
-    mesh = ShardMesh(*SHARD_MESH)
+    def shard_mesh(shape):
+        return ShardMesh(pod_axes[0] + shape, pod_axes[1] + ("data", "model"))
+
+    mesh = shard_mesh(SHARD_MESH[0])
     S = 8
     n_ins = (rounds + 1 + record) * per_round
     n_mask = 4 * per_round
@@ -2382,14 +2404,22 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
                             + (1 + record) * SHARD_QUERY_BATCH, seed=1)
     cap = shard_capacity(n_base, per_round, S)
     params = sift_params(cap, strategy="global", max_capacity=2 * cap)
-    dp = DistParams(index=params, vec_dtype="bfloat16")
+    pod_axis = "pod" if pods > 1 else None
+    dp = DistParams(index=params, vec_dtype="bfloat16", pod_axis=pod_axis)
     stride = dp.gid_stride()
     block = shard_block(dp, mesh, group)
+    # the collectives' groups: the replica's ranks, and with pods on their
+    # own ranks the ranks holding the same block in every pod
+    replica, peers = pod_groups(dp, mesh, group)
+
+    def coll_s():
+        return np.array([g.collective_s if g is not None else 0.0
+                         for g in (replica, peers)])
     rng = np.random.default_rng(0)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    out = {"n_base": n_base, "shards": S, "mesh": list(SHARD_MESH[0]),
-           "shards_here": [block.start, block.stop],
+    out = {"n_base": n_base, "shards": S, "mesh": list(mesh.shape),
+           "pod": pod_of(dp, mesh, group), "shards_here": [block.start, block.stop],
            "capacity_per_shard": cap, "gid_stride": stride,
            "vec_dtype": dp.vec_dtype}
     rec = {"queries": [], "inserts": []}
@@ -2486,10 +2516,10 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
         flat = idx[pos.long()]
         true_gid = ((s0 + torch.div(flat, capx, rounding_mode="floor")) * str_x
                     + flat % capx)
-        if group is not None:
+        if replica is not None:
             B = qh.shape[0]
-            cat_s = group.all_gather(top_s[None]).permute(1, 0, 2).reshape(B, -1)
-            cat_g = group.all_gather(true_gid[None]).permute(1, 0, 2).reshape(B, -1)
+            cat_s = replica.all_gather(top_s[None]).permute(1, 0, 2).reshape(B, -1)
+            cat_g = replica.all_gather(true_gid[None]).permute(1, 0, 2).reshape(B, -1)
             _, true_gid = topk_union(cat_s.contiguous(), cat_g.contiguous(), 10)
         del x, xsq
         found, _, dt, _ = query(held, f"recall {tag}")
@@ -2517,7 +2547,7 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
     recall("before")
     op_s = {"query": 0.0, "insert": 0.0, "insert_after_grow": 0.0, "delete": 0.0,
             "traced": 0.0}
-    op_coll = dict.fromkeys(op_s, 0.0)
+    op_coll = {k: np.zeros(2) for k in op_s}
     fold_checked = 0
     qi = 0
     for rnd in range(rounds):
@@ -2605,10 +2635,11 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
 
     # ---- reshard 8 → 4 shards at 2·cap slots each ----
     new_params = sift_params(2 * cap, strategy="global", max_capacity=2 * cap)
-    new_dp, new_mesh = DistParams(index=new_params), ShardMesh((2, 2), ("data", "model"))
+    new_dp = DistParams(index=new_params, pod_axis=pod_axis)
+    new_mesh = shard_mesh((2, 2))
     t = time.perf_counter()
     whole = sess.gather_state()
-    if record and (group is None or group.rank == 0):
+    if record and (replica is None or replica.rank == 0):
         rec["digest_before_reshard"] = state_digest(torch, whole)
     new_state, remap = reshard(whole, sess.dp.index, new_params, 4,
                                shards=shard_block(new_dp, new_mesh, group))
@@ -2635,7 +2666,7 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
     out["fold_equal_ops"] = fold_checked
     if record:
         whole = sess.gather_state()
-        if group is None or group.rank == 0:
+        if replica is None or replica.rank == 0:
             rec["digest_after_reshard"] = state_digest(torch, whole)
         del whole
         out["record"] = rec
@@ -2649,8 +2680,16 @@ def sharded_stream(torch, n_base: int, per_round: int, rounds: int = 2,
         out["group"] = {"backend": "nccl" if on_card else "gloo", "world": group.world,
                         "rank": group.rank, "collective_s": group.collective_s,
                         "n_collectives": group.n_collectives,
-                        "collective_ms_per_op": {k: op_coll[k] / n * 1e3
+                        "collective_ms_per_op": {k: float(op_coll[k].sum()) / n * 1e3
                                                  for k, n in n_ops.items()}}
+        if peers is not None:
+            # the replica group's collectives and the pod-peer group's apart
+            out["group"]["subgroups"] = {
+                name: {"world": g.world, "rank": g.rank, "collective_s": g.collective_s,
+                       "n_collectives": g.n_collectives,
+                       "collective_ms_per_op": {k: float(op_coll[k][i]) / n * 1e3
+                                                for k, n in n_ops.items()}}
+                for i, (name, g) in enumerate((("replica", replica), ("pod_peer", peers)))}
     out["timers"] = timers
     out["peak_mem_gib"] = peak_gib(torch) if on_card else None
     out["phase_s"] = time.perf_counter() - t_phase
@@ -2676,59 +2715,85 @@ def phase_sharded(torch, n_base: int, per_round: int, rounds: int = 2,
     return out
 
 
-def sharded_rank(group, n_base: int, per_round: int, rounds: int) -> dict:
-    """One rank of the sharded4 phase (started by ``run_on_ranks``)."""
+def sharded_rank(group, n_base: int, per_round: int, rounds: int, pods: int = 1) -> dict:
+    """One rank of the sharded4 or pods4 phase (started by ``run_on_ranks``)."""
     import torch
 
-    out = sharded_stream(torch, n_base, per_round, rounds, group=group, record=True)
+    out = sharded_stream(torch, n_base, per_round, rounds, group=group, record=True,
+                         pods=pods)
     out["card"] = torch.cuda.get_device_name(group.device) if group.device.type == "cuda" else "cpu"
     return out
 
 
-def phase_sharded4(torch, n_base: int, per_round: int, rounds: int = 2,
-                   device: str = "cuda") -> dict:
-    """Cell sift1m-sharded-4: ``sharded_stream`` on 4 ranks, one a card
-    (NCCL), each holding 2 of the 8 shards and linking only those; then
-    the same stream stacked on one device (``cuda:0``) as the control.
-    Every rank's query answers and insert gids, and the gathered state
-    before and after the reshard, must be byte-equal to the control's."""
+def phase_ranked(torch, name: str, n_base: int, per_round: int, rounds: int = 2,
+                 device: str = "cuda", pods: int = 1) -> dict:
+    """``sharded_stream`` on 4 ranks, one a card (NCCL; gloo with
+    ``device="cpu"``), then the same stream stacked on one device
+    (``cuda:0``) as the control. Every rank's query answers and insert
+    gids, and each pod's gathered state before and after the reshard,
+    must be byte-equal to the control's; every kernel of the path
+    launched on every rank."""
     import numpy as np
 
     from repro_torch.launch.mesh import run_on_ranks
 
     if torch.device(device).type == "cuda" and torch.cuda.device_count() < SHARD_RANKS:
-        raise SmokeFailure(f"sharded4 needs {SHARD_RANKS} cards, "
+        raise SmokeFailure(f"{name} needs {SHARD_RANKS} cards, "
                            f"{torch.cuda.device_count()} found")
     t0 = time.perf_counter()
     per_rank = run_on_ranks(sharded_rank, SHARD_RANKS, device=device,
-                            timeout_s=RANK_TIMEOUT_S, args=(n_base, per_round, rounds))
+                            timeout_s=RANK_TIMEOUT_S,
+                            args=(n_base, per_round, rounds, pods))
     ranks_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    control = sharded_stream(torch, n_base, per_round, rounds, device, record=True)
+    control = sharded_stream(torch, n_base, per_round, rounds, device, record=True,
+                             pods=pods)
     control_s = time.perf_counter() - t0
     want = control.pop("record")
+    digests = 0
     for r, got in enumerate(per_rank):
         rec = got.pop("record")
         check(len(rec["queries"]) == len(want["queries"])
               and all(np.array_equal(a[0], b[0]) and a[1].tobytes() == b[1].tobytes()
                       for a, b in zip(rec["queries"], want["queries"])),
-              f"sharded4: rank {r}'s answers differ from the one-card control")
+              f"{name}: rank {r}'s answers differ from the one-card control")
         check(len(rec["inserts"]) == len(want["inserts"])
               and all(np.array_equal(a, b) for a, b in zip(rec["inserts"], want["inserts"])),
-              f"sharded4: rank {r}'s insert gids differ from the one-card control")
-        if r == 0:
-            for tag in ("digest_before_reshard", "digest_after_reshard"):
+              f"{name}: rank {r}'s insert gids differ from the one-card control")
+        for tag in ("digest_before_reshard", "digest_after_reshard"):
+            if tag in rec:              # the first rank of each pod
                 diff = [f for f in want[tag] if rec[tag][f] != want[tag][f]]
-                check(not diff, f"sharded4: the gathered state ({tag}) differs from "
-                                f"the one-card control in {diff}")
+                check(not diff, f"{name}: pod {got['pod']}'s gathered state ({tag}) "
+                                f"differs from the one-card control in {diff}")
+                digests += 1
         if torch.device(device).type == "cuda":
-            for name in SHARDED_KERNELS:
-                check(got["launches"][name] > 0,
-                      f"kernel {name} was not launched on rank {r} of the sharded4 path")
+            for kname in SHARDED_KERNELS:
+                check(got["launches"][kname] > 0,
+                      f"kernel {kname} was not launched on rank {r} of the {name} path")
+    check(digests == 2 * pods, f"{name}: {digests} gathered states compared, "
+                               f"not 2 of each of the {pods} pods")
     return {"ranks": per_rank, "control": control, "ranks_s": ranks_s,
             "control_s": control_s, "equal_query_ops": len(want["queries"]),
+            "equal_replica_states": digests,
             "launches": {k: sum(got["launches"][k] for got in per_rank)
                          for k in per_rank[0]["launches"]}}
+
+
+def phase_sharded4(torch, n_base: int, per_round: int, rounds: int = 2,
+                   device: str = "cuda") -> dict:
+    """Cell sift1m-sharded-4: ``phase_ranked`` on a (4, 2) mesh, each rank
+    holding 2 of the 8 shards and linking only those."""
+    return phase_ranked(torch, "sharded4", n_base, per_round, rounds, device)
+
+
+def phase_pods4(torch, n_base: int, per_round: int, rounds: int = 2,
+                device: str = "cuda") -> dict:
+    """Cell sift1m-pods-4: ``phase_ranked`` on a (2, 4, 2) mesh, 2 pods of
+    2 ranks, each pod a replica of the 8 shards and each rank holding and
+    linking 4 of its pod's; each query op of 256 split into 128 a pod; the
+    control is the pod loop on the same mesh, one replica on ``cuda:0``."""
+    return phase_ranked(torch, "pods4", n_base, per_round, rounds, device,
+                        pods=SHARD_PODS)
 
 
 # ---------------------------------------------------------------------------
@@ -3946,7 +4011,7 @@ def main(argv=None) -> int:
     kernel_rows = {}
     sift, maint, durable, tiered, serve, sharded, models, gnn, train, dry = (
         {}, {}, {}, {}, {}, {}, {}, {}, {}, {})
-    sharded4 = {}
+    sharded4, pods4 = {}, {}
     try:
         t0 = time.perf_counter()
         kbuild.build_all()
@@ -4027,16 +4092,22 @@ def main(argv=None) -> int:
             sharded = phase_sharded(torch, args.n_base, shard_round)
             emit({"phase": "sharded", "card": smi, **sharded})
             torch.cuda.empty_cache()
-        if "sharded4" in phases:
+        for name, run in (("sharded4", phase_sharded4), ("pods4", phase_pods4)):
+            if name not in phases:
+                continue
             shard_round = max(1, args.per_round // 4)
             if args.n_base != 1_000_000 or shard_round != 512:
-                emit({"reduced": {"sharded4": {"n_base": args.n_base,
-                                               "per_round": shard_round,
-                                               "of": {"n_base": 1_000_000,
-                                                      "per_round": 512}}}})
-            sharded4 = phase_sharded4(torch, args.n_base, shard_round)
-            emit({"phase": "sharded4", "card": smi, "nvidia_smi_all": nvidia_smi_line(all_cards=True),
-                  **sharded4})
+                emit({"reduced": {name: {"n_base": args.n_base,
+                                         "per_round": shard_round,
+                                         "of": {"n_base": 1_000_000,
+                                                "per_round": 512}}}})
+            out = run(torch, args.n_base, shard_round)
+            emit({"phase": name, "card": smi, "nvidia_smi_all": nvidia_smi_line(all_cards=True),
+                  **out})
+            if name == "sharded4":
+                sharded4 = out
+            else:
+                pods4 = out
             torch.cuda.empty_cache()
         if "models" in phases:
             emit({"reduced": {"models": {
@@ -4086,6 +4157,7 @@ def main(argv=None) -> int:
             "launches_serve": serve.get("launches", {}).get(name, 0),
             "launches_sharded": sharded.get("launches", {}).get(name, 0),
             "launches_sharded4": sharded4.get("launches", {}).get(name, 0),
+            "launches_pods4": pods4.get("launches", {}).get(name, 0),
             "launches_models": models.get("launches", {}).get(name, 0),
             "launches_gnn": gnn.get("launches", {}).get(name, 0),
             "launches_train": train.get("launches", {}).get(name, 0),

@@ -26,7 +26,13 @@ package restores the other's. JAX's ``restore(shardings=)`` places each
 leaf on a mesh; on one device its counterpart is the caller's device: the
 leaves come back as host arrays and the caller moves them there (for a
 sharded state, ``graph_state_from_numpy(..., device=...)``), and
-``distributed.elastic.reshard`` re-shards to another shard count.
+``distributed.elastic.reshard`` re-shards to another shard count. Across
+cards the elastic restore is the rank's: one rank saves a sharded
+session's ``gather_state()`` (its replica's global stack) with its
+``op_counters``, and ``ShardedSession(state=<that stack>, group=...,
+op_counters=...)`` on any rank count of the same mesh keeps each rank's
+block and resumes the key chains, so the next ops equal the
+uninterrupted run's (``testing/ranks.py::resume_checks``: 4 ranks to 2).
 
 ``timings`` holds the seconds of each step of the last save or restore
 (each a full host copy of the state at 10^6 vectors): ``to_host_s``,

@@ -24,9 +24,9 @@ shard axes (JAX's ``_shard_index``), and every per-shard key is
 ``fold_in(key, s)``. The collectives become tensor
 ops over the stacked axis: ``all_gather`` is the stack itself, ``pmax``
 over gids a max over shards, the merge a reshape to the mesh shape. A
-``pod`` axis holds replicas in JAX and splits the query batch; the port
-keeps one replica and runs the batch pod by pod, each pod's lanes
-counting from 0 as the per-pod JAX program's do.
+``pod`` axis holds replicas in JAX and splits the query batch; in one
+process the port keeps one replica and runs the batch pod by pod, each
+pod's lanes counting from 0 as the per-pod JAX program's do.
 
 Writes loop over the shards: shard ``s`` runs the port's
 ``insert_batch_impl``, ``delete_batch`` or ``consolidate_chunk_impl`` on a
@@ -46,19 +46,35 @@ instead of S ops'. ``make_query_step(..., fold=False)`` keeps the
 per-shard loop as the plain version the tests hold the fold against.
 
 One rank per card. Every step builder and ``ShardedSession`` take
-``group``, a ``launch.mesh.CardGroup`` of W ranks (W divides S). Rank r
-holds the contiguous block of global shards ``[r·S/W, (r+1)·S/W)`` as its
-local stack; every per-shard key, owner test and gid offset uses the
-global shard index, so each rank computes the stack's bytes for its
-block. The collectives of JAX's ``shard_map`` programs become
-``torch.distributed`` calls: the query ``all_gather``s the per-shard top-k
-lists into ``[S, B, K]`` in rank order before the same merge, the insert
-takes an ``all_reduce(MAX)`` over the announced gids, delete and
-consolidate need none. Inputs and results are replicated on every rank,
-as JAX's ``P()``. Every host decision (growth, consolidation passes, the
-counts behind them) reads gathered per-shard counts, so every rank takes
-it alike and enters the same collectives. ``group=None`` is the stacked
-layout above, the plain version the rank path is held against.
+``group``, a ``launch.mesh.CardGroup`` of W ranks. Without a pod axis
+(W divides S) rank r holds the contiguous block of global shards
+``[r·S/W, (r+1)·S/W)`` as its local stack; every per-shard key, owner
+test and gid offset uses the global shard index, so each rank computes
+the stack's bytes for its block. The collectives of JAX's ``shard_map``
+programs become ``torch.distributed`` calls: the query ``all_gather``s the
+per-shard top-k lists into ``[S, B, K]`` in rank order before the same
+merge, the insert takes an ``all_reduce(MAX)`` over the announced gids,
+delete and consolidate need none. Inputs and results are replicated on
+every rank, as JAX's ``P()``. Every host decision (growth, consolidation
+passes, the counts behind them) reads gathered per-shard counts, so every
+rank takes it alike and enters the same collectives. ``group=None`` is the
+stacked layout above, the plain version the rank path is held against.
+
+Pods on their own ranks. With a ``pod`` axis of size P (P divides W; a
+one-rank group keeps the pod loop) each pod is a replica of all S shards
+on G = W/P ranks, row-major as JAX orders the devices: rank r is in pod
+``r // G`` and holds the pod-relative block ``[g·S/G, (g+1)·S/G)``, g =
+``r % G`` (G divides S). ``CardGroup.split`` gives it two subgroups: the
+replica group (its pod's ranks) and the pod-peer group (the ranks holding
+the same block in every pod). A query op takes its pod's slice of the
+batch, runs the pod loop's body over the replica group, and the pods'
+answers meet in an ``all_gather`` over the pod-peer group (JAX's
+``out_specs=P(pod)``): every rank returns the whole ``[B, k]``. Writes
+run in full on every replica (JAX's ``P()`` inputs), the insert's max
+over the replica group only (JAX's ``pmax`` over the shard axes). Host
+decisions gather the per-shard counts over the replica group and compare
+them across pods over the pod-peer group: replicas that disagree raise
+:class:`ReplicaMismatch` on every rank.
 """
 from __future__ import annotations
 
@@ -127,17 +143,56 @@ def num_shards(dp: DistParams, mesh: ShardMesh) -> int:
     return math.prod(mesh.size(a) for a in dp.shard_axes)
 
 
+class ReplicaMismatch(RuntimeError):
+    """The pods' replicas of the shards hold different counts."""
+
+
+def _rank_pods(dp: DistParams, mesh: ShardMesh,
+               group: CardGroup | None) -> int:
+    """The pods laid over the group's ranks: the pod axis's size with a
+    group of two ranks or more, else 1 (no group, a one-rank group or no
+    pod axis: one replica in this process). Raises where they do not
+    split the ranks."""
+    if group is None or group.world == 1 or not dp.pod_axis:
+        return 1
+    pods = mesh.size(dp.pod_axis)
+    if group.world % pods:
+        raise ValueError(f"{group.world} ranks do not split over {pods} pods")
+    return pods
+
+
+def pod_of(dp: DistParams, mesh: ShardMesh,
+           group: CardGroup | None = None) -> int:
+    """The pod whose replica this rank holds (0 with one replica)."""
+    pods = _rank_pods(dp, mesh, group)
+    return 0 if pods == 1 else group.rank // (group.world // pods)
+
+
+def pod_groups(dp: DistParams, mesh: ShardMesh, group: CardGroup | None
+               ) -> tuple[CardGroup | None, CardGroup | None]:
+    """(replica group, pod-peer group) of this rank: the group and None
+    with one replica over the group, ``group.split(pods)`` with pods on
+    their own ranks, (None, None) without a group."""
+    pods = _rank_pods(dp, mesh, group)
+    return (group, None) if pods == 1 else group.split(pods)
+
+
 def shard_block(dp: DistParams, mesh: ShardMesh,
                 group: CardGroup | None = None) -> range:
     """The global shards this process holds: all S without a group, the
-    rank's contiguous block of S/W with one (W must divide S)."""
+    rank's contiguous block of S/G with one, G the ranks of its pod (the
+    whole group without pods on their own ranks; G must divide S)."""
     S = num_shards(dp, mesh)
     if group is None:
         return range(S)
-    if S % group.world:
-        raise ValueError(f"{group.world} ranks do not divide {S} shards")
-    n = S // group.world
-    return range(group.rank * n, (group.rank + 1) * n)
+    pods = _rank_pods(dp, mesh, group)
+    G = group.world // pods
+    if S % G:
+        what = f"{G} ranks a pod" if pods > 1 else f"{G} ranks"
+        raise ValueError(f"{what} do not divide {S} shards")
+    n = S // G
+    g = group.rank % G
+    return range(g * n, (g + 1) * n)
 
 
 def init_sharded_state(dp: DistParams, mesh: ShardMesh, *,
@@ -159,9 +214,11 @@ def init_sharded_state(dp: DistParams, mesh: ShardMesh, *,
 
 
 def gather_state(state: GraphState, group: CardGroup | None) -> GraphState:
-    """The global stack ``[S, ...]`` from every rank's block, on every rank
-    (the stack itself without a group): checkpoints in JAX's layout, and
-    the checks."""
+    """Every rank's block of ``group`` concatenated in rank order, on every
+    rank (the stack itself without a group): over the replica group
+    (``pod_groups``; the whole group without pods on their own ranks) the
+    global stack ``[S, ...]`` of one replica, checkpoints in JAX's layout,
+    and the checks."""
     if group is None:
         return state
     return dataclasses.replace(state, **{
@@ -324,9 +381,14 @@ def make_query_step(dp: DistParams, mesh: ShardMesh, *, fold: bool = True,
     With a pod axis the batch splits into equal pod slices, each run as
     its own program. ``flat`` is a cached ``flat_view`` of the state. With
     a group each rank searches its block and the per-shard lists are
-    ``all_gather``ed before the merge; every rank returns the answer."""
+    ``all_gather``ed over the replica group before the merge; with pods on
+    their own ranks each pod runs its slice and the slices' answers are
+    ``all_gather``ed over the pod-peer group. Every rank returns the
+    answer."""
     stride = dp.gid_stride()
     pods = mesh.size(dp.pod_axis) if dp.pod_axis else 1
+    replica, peers = pod_groups(dp, mesh, group)
+    pod = pod_of(dp, mesh, group)
 
     def step(state_stacked: GraphState, queries, key: torch.Tensor, *,
              flat: GraphState | None = None):
@@ -342,17 +404,21 @@ def make_query_step(dp: DistParams, mesh: ShardMesh, *, fold: bool = True,
                              f"{pods} pods")
         shard_off = (torch.arange(s0, s0 + n, device=dev, dtype=torch.int32)
                      * stride)[:, None, None]
+        slices = q.chunk(pods) if pods > 1 else (q,)
         out_i, out_s = [], []
-        for qp in q.chunk(pods) if pods > 1 else (q,):
+        for qp in slices if peers is None else (slices[pod],):
             lids, scores = fanout_search(state_stacked, qp, key, dp.index,
                                          fold=fold, flat=flat, s0=s0)
             gids = torch.where(lids != NULL, lids + shard_off, NULL)
-            if group is not None:   # JAX's all_gather of the per-shard lists
-                scores, gids = group.all_gather(scores), group.all_gather(gids)
+            if replica is not None:  # JAX's all_gather of the per-shard lists
+                scores, gids = replica.all_gather(scores), replica.all_gather(gids)
             top_s, top_i = _merge(scores, gids, dp, mesh, dp.index.search.pool_size)
             out_i.append(top_i)
             out_s.append(top_s)
-        return torch.cat(out_i), torch.cat(out_s)
+        top_i, top_s = torch.cat(out_i), torch.cat(out_s)
+        if peers is not None:       # JAX's out_specs=P(pod): pods in order
+            top_i, top_s = peers.all_gather(top_i), peers.all_gather(top_s)
+        return top_i, top_s
 
     return step
 
@@ -362,8 +428,10 @@ def make_insert_step(dp: DistParams, mesh: ShardMesh, *,
     """Routed batch insert: ``step(state, vectors f32[B, dim], route i32[B],
     key) → (state, gids i32[B])``, in place; NULL where the owner was
     full. With a group the ranks' announcements meet in an
-    ``all_reduce(MAX)``."""
+    ``all_reduce(MAX)`` over the replica group; every pod inserts the
+    whole batch into its replica."""
     stride = dp.gid_stride()
+    replica, _ = pod_groups(dp, mesh, group)
 
     def step(state_stacked: GraphState, vecs, route, key: torch.Tensor):
         S, s0 = _check_shards(state_stacked, dp, mesh, group)
@@ -384,8 +452,8 @@ def make_insert_step(dp: DistParams, mesh: ShardMesh, *,
             # exact since real gids are >= 0 (JAX's pmax)
             gids = torch.maximum(gids, torch.where(mine, g, NULL)
                                  .to(torch.int32))
-        if group is not None:
-            group.all_reduce(gids, "max")
+        if replica is not None:
+            replica.all_reduce(gids, "max")
         return state_stacked, gids
 
     return step
@@ -394,7 +462,8 @@ def make_insert_step(dp: DistParams, mesh: ShardMesh, *,
 def make_delete_step(dp: DistParams, mesh: ShardMesh, strategy: str, *,
                      group: CardGroup | None = None):
     """Owner-masked delete of global ids: ``step(state, gids i32[B], key) →
-    state``, in place. Each rank repairs its own block; no collective."""
+    state``, in place. Each rank repairs its own block (every pod its
+    replica); no collective."""
     stride = dp.gid_stride()
 
     def step(state_stacked: GraphState, gids, key: torch.Tensor):
@@ -425,7 +494,7 @@ def make_consolidate_step(dp: DistParams, mesh: ShardMesh, *,
     place. Every shard compacts its ``consolidate_chunk`` lowest-id
     tombstones (a partly valid or empty frame where it has fewer); the
     host loops passes until the most loaded shard is drained. Each rank
-    compacts its own block; no collective."""
+    compacts its own block (every pod its replica); no collective."""
     mp = dp.index.maintenance
     chunk = mp.consolidate_chunk or mp.delete_chunk
 
@@ -480,19 +549,24 @@ class ShardedSession:
     (for example one ``elastic.reshard`` placed).
 
     With ``group`` (one rank per card) every rank runs the same calls on
-    replicated inputs and holds its block of shards in ``state``; a given
+    replicated inputs and holds its block of shards in ``state`` (with
+    pods on their own ranks, its block of its pod's replica); a given
     ``state`` is either the global stack, of which the rank keeps its block,
     or the block itself (``elastic.reshard(..., shards=...)``).
-    ``gather_state()`` returns the global stack. The timers are the rank's
-    own: every rank counts each op once."""
+    ``gather_state()`` returns the global stack of the rank's replica. The
+    timers are the rank's own: every rank counts each op once, with its
+    whole batch. ``op_counters`` resumes the op and consolidation key
+    chains (a restored checkpoint's ``op_counters``)."""
 
     def __init__(self, dp: DistParams, mesh: ShardMesh, *,
                  strategy: str | None = None, seed: int = 0, device=None,
                  state: GraphState | None = None,
-                 group: CardGroup | None = None):
+                 group: CardGroup | None = None,
+                 op_counters: tuple[int, int] = (0, 0)):
         self.dp = dp
         self.mesh = mesh
         self.group = group
+        self.replica, self.peers = pod_groups(dp, mesh, group)
         self._strategy = (strategy if strategy is not None
                           else dp.index.maintenance.strategy)
         self._build_steps()
@@ -513,7 +587,7 @@ class ShardedSession:
                              f"{group.device}")
         self.state = state
         self._base_key = prng.prng_key(seed, device=self.state.device)
-        self._op_counter = 0
+        self._op_counter, self._consolidate_counter = map(int, op_counters)
         self._flat: GraphState | None = None    # the query's view, per version
         self._insert_results: list[torch.Tensor] = []  # gid tensors → n_refused
         self._window_t0: float | None = None
@@ -521,7 +595,6 @@ class ShardedSession:
         # consolidation bookkeeping, the core session's host gate: an
         # overestimated tombstone count against an underestimated present
         # count; the device-exact check runs only on crossing
-        self._consolidate_counter = 0
         self._in_consolidate = False
         self._masked_hint = 0
         self._present_floor = 0
@@ -547,6 +620,12 @@ class ShardedSession:
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    @property
+    def op_counters(self) -> tuple[int, int]:
+        """(ops, consolidation passes) keyed so far: with the seed and the
+        gathered state, what a restart needs to resume the key chains."""
+        return self._op_counter, self._consolidate_counter
 
     @property
     def strategy(self) -> str:
@@ -634,11 +713,23 @@ class ShardedSession:
     # -- capacity growth (lockstep over shards) ----------------------------
     def _per_shard(self, mask: torch.Tensor) -> np.ndarray:
         """Per-shard counts of ``mask`` over every global shard, gathered
-        from every rank (synchronises): the only counts host decisions
-        read, so every rank decides alike."""
+        from every rank of the replica (synchronises): the only counts host
+        decisions read, so every rank decides alike. With pods on their own
+        ranks the pods' counts are compared too: replicas that disagree
+        raise :class:`ReplicaMismatch` on every rank."""
         counts = mask.sum(dim=1)
-        if self.group is not None:
-            counts = self.group.all_gather(counts)
+        if self.replica is not None:
+            counts = self.replica.all_gather(counts)
+        if self.peers is not None:
+            per_pod = self.peers.all_gather(counts[None]).cpu().numpy()
+            for p in range(1, per_pod.shape[0]):
+                if not np.array_equal(per_pod[p], per_pod[0]):
+                    s = int(np.flatnonzero(per_pod[p] != per_pod[0])[0])
+                    raise ReplicaMismatch(
+                        f"the replicas of pod 0 and pod {p} disagree: shard "
+                        f"{s} counts {int(per_pod[0, s])} against "
+                        f"{int(per_pod[p, s])}")
+            return per_pod[0]
         return counts.cpu().numpy()
 
     def _per_shard_present(self) -> np.ndarray:
@@ -648,9 +739,9 @@ class ShardedSession:
         return self._per_shard(self.state.masked)
 
     def gather_state(self) -> GraphState:
-        """The global stacked state, on every rank (the state itself without
-        a group)."""
-        return gather_state(self.state, self.group)
+        """The global stacked state of this rank's replica, on every rank
+        (the state itself without a group)."""
+        return gather_state(self.state, self.replica)
 
     def _ensure_room(self, n: int) -> None:
         """Per-shard grow/consolidate gate at the insert boundary: drain

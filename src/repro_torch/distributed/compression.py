@@ -6,7 +6,9 @@ sum exactly as int32, and the mean dequantizes with the mean scale — 4×
 fewer wire bytes on a data-parallel all-reduce. On one device the members
 are the leading axis of a stacked tensor and the ``psum`` is a sum over
 it; with a ``CardGroup`` each rank is one member (JAX's in-``shard_map``
-form) and the sum is an ``all_reduce``. Every member draws its rounding
+form) and the sum is an ``all_reduce``. Any group serves, a subgroup
+too: over the pod-peer group of ``CardGroup.split`` the members are the
+pods, JAX's cross-pod sync. Every member draws its rounding
 noise from the same key, as every device of JAX's ``shard_map`` program
 does.
 

@@ -8,6 +8,9 @@ so only graphs, not data, are recomputed. The work stays on the state's
 device; only the id remap comes back to the host. Each new shard links on
 its own, so ``shards=`` builds only some of them: a rank of a sharded
 session links its own block, and every rank gets the same global remap.
+With pods on their own ranks the block is pod-relative
+(``ann.shard_block``), so each pod bulk-links its own replica, as each of
+JAX's pods does on its devices.
 """
 from __future__ import annotations
 

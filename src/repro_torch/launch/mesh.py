@@ -12,7 +12,10 @@ per card, joined by ``torch.distributed`` (NCCL on cards, rank r on
 ``cuda:r``; gloo on the CPU, only where the caller passes ``device="cpu"``).
 :func:`run_on_ranks` starts one process per rank and collects what each
 returns; it is the port's counterpart of ``jax.make_mesh`` over real
-devices for the sharded index (``distributed/ann.py``).
+devices for the sharded index (``distributed/ann.py``). A mesh with a
+``pod`` axis puts each pod on its own ranks: :meth:`CardGroup.split` gives
+a rank the subgroup of its pod (the replica group) and the subgroup of the
+ranks at its place in every pod (the pod-peer group).
 """
 from __future__ import annotations
 
@@ -116,6 +119,8 @@ class CardGroup:
     pg: Any
     collective_s: float = 0.0
     n_collectives: int = 0
+    timeout_s: float = 1800.0
+    _splits: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def open(cls, rank: int, world: int, store_path: str, *, device,
@@ -144,16 +149,54 @@ class CardGroup:
         dist.init_process_group(
             backend, store=store, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
-        group = cls(rank, world, dev, dist.group.WORLD)
-        probe = group.all_reduce(torch.ones(1, dtype=torch.int32, device=dev),
-                                 "sum")
-        if int(probe) != world:
-            raise RuntimeError(f"{backend} group came up with {int(probe)} "
-                               f"of {world} ranks")
-        group.collective_s, group.n_collectives = 0.0, 0
+        group = cls(rank, world, dev, dist.group.WORLD, timeout_s=timeout_s)
+        group._probe()
         return group
 
+    def _probe(self) -> None:
+        """One collective over the group, so a group that cannot come up
+        raises here (and NCCL's lazy set-up is not billed to the first
+        op); the counters start after it."""
+        probe = self.all_reduce(torch.ones(1, dtype=torch.int32,
+                                           device=self.device), "sum")
+        if int(probe) != self.world:
+            raise RuntimeError(f"group came up with {int(probe)} of "
+                               f"{self.world} ranks")
+        self.collective_s, self.n_collectives = 0.0, 0
+
+    def split(self, pods: int) -> tuple["CardGroup", "CardGroup"]:
+        """(replica group, pod-peer group) of this rank when ``pods`` pods
+        of G = world / pods ranks each lie row-major over the ranks: the
+        ranks ``[p·G, (p+1)·G)`` of its pod p, and the ranks ``g, G + g,
+        …`` at its place g in every pod, each in rank order. Every rank
+        creates every subgroup, in the same order (``new_group`` is
+        collective over the whole group), and each runs one probe
+        collective. Made once per ``pods``."""
+        import torch.distributed as dist
+
+        if pods not in self._splits:
+            if pods < 1 or self.world % pods:
+                raise ValueError(f"{self.world} ranks do not split over "
+                                 f"{pods} pods")
+            G = self.world // pods
+            layouts = ([list(range(p * G, (p + 1) * G)) for p in range(pods)]
+                       + [list(range(g, self.world, G)) for g in range(G)])
+            mine = []
+            for ranks in layouts:
+                pg = dist.new_group(ranks, timeout=datetime.timedelta(
+                    seconds=self.timeout_s))
+                if self.rank in ranks:
+                    mine.append(CardGroup(ranks.index(self.rank), len(ranks),
+                                          self.device, pg,
+                                          timeout_s=self.timeout_s))
+            for sub in mine:
+                sub._probe()
+            self._splits[pods] = tuple(mine)
+        return self._splits[pods]
+
     def close(self) -> None:
+        """Leave the group (the whole group's close also ends its
+        subgroups)."""
         import torch.distributed as dist
 
         dist.destroy_process_group(self.pg)

@@ -8,36 +8,54 @@ caller can hold every layout's bytes against the others'.
 - :func:`parity_stream`: the stream that ``tests/test_torch_distributed.py``
   holds against JAX's 8-device programs (steps on a (4, 2) mesh, deletes
   of every strategy, consolidation, a session that grows and consolidates,
-  bf16 rows, a pod mesh), with the global state after every step.
+  bf16 rows, a (2, 2, 2) pod mesh whose pods lie on their own ranks), with
+  the global state after every step.
 - :func:`rank_checks`: a growing MASK session with its counters, a
-  ``gather_state`` round trip, every sharded crash point, and one
-  ``compressed_psum`` member a rank.
+  ``gather_state`` round trip, every sharded crash point, one
+  ``compressed_psum`` member a rank, and (given a checkpoint of
+  :func:`pod_checks`) a pod session resumed on this rank count.
+- :func:`pod_checks`: the same session and crash points on a (2, 4, 2)
+  pod mesh, the pods on their own ranks; one ``compressed_psum`` member a
+  pod over the pod-peer group; a checkpoint of the session saved by rank
+  0 and the ops that follow it; replicas made to disagree.
 - :func:`raise_on_rank`: a rank that fails while the others wait in a
   collective.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import prng
-from repro_torch.core.graph import DATA_FIELDS, tensor_to_numpy
+from repro_torch.core.graph import (
+    DATA_FIELDS,
+    graph_state_from_numpy,
+    tensor_to_numpy,
+)
 from repro_torch.core.params import IndexParams, MaintenanceParams, SearchParams
 from repro_torch.distributed.ann import (
     DistParams,
+    ReplicaMismatch,
     ShardedSession,
     ShardMesh,
     gather_state,
     init_sharded_state,
+    init_specs_tree,
     make_consolidate_step,
     make_delete_step,
     make_insert_step,
     make_query_step,
+    pod_groups,
+    pod_of,
 )
 from repro_torch.distributed.compression import compressed_psum
 from repro_torch.testing import faults
 
 MESH = ShardMesh((4, 2), ("data", "model"))
+POD_MESH = ShardMesh((2, 4, 2), ("pod", "data", "model"))
 
 
 def small_params(cap: int, dim: int, **maintenance) -> IndexParams:
@@ -62,7 +80,8 @@ def pick(g: np.ndarray, idx) -> np.ndarray:
 
 
 def state_arrays(state, group) -> dict:
-    """Host copies of the global state's fields (bf16 rows as uint16)."""
+    """Host copies of the fields of every block of ``group`` (bf16 rows as
+    uint16): over the replica group, one replica's global state."""
     st = gather_state(state, group)
     out = {}
     for f in DATA_FIELDS:
@@ -80,8 +99,8 @@ def parity_stream(group, inp: dict, device="cpu") -> dict:
     res = {}
     K = prng.prng_key
 
-    def dump(tag, st):
-        for f, a in state_arrays(st, group).items():
+    def dump(tag, st, over=group):
+        for f, a in state_arrays(st, over).items():
             res[f"{tag}/{f}"] = a
 
     def query(tag, out):
@@ -137,25 +156,32 @@ def parity_stream(group, inp: dict, device="cpu") -> dict:
     dp3 = DistParams(index=small_params(64, dim), pod_axis="pod")
     st, g3 = make_insert_step(dp3, mesh3, group=group)(
         init(dp3, mesh3), X[:80], route[:80], K(0))
-    dump("pod", st)
+    dump("pod", st, pod_groups(dp3, mesh3, group)[0])
     res["pod/gids"] = g3.cpu().numpy()
     query("podq", make_query_step(dp3, mesh3, group=group)(st, Q, K(1)))
     return res
 
 
-def _growing_session(group, X, device):
-    sess = ShardedSession(DistParams(index=growing_params(X.shape[1])), MESH,
+def growing_dist_params(dim: int, mesh: ShardMesh) -> DistParams:
+    """``growing_params`` over ``mesh``, its pod axis set where it has one."""
+    return DistParams(index=growing_params(dim),
+                      pod_axis="pod" if "pod" in mesh.axis_names else None)
+
+
+def _growing_session(group, X, device, mesh=MESH):
+    sess = ShardedSession(growing_dist_params(X.shape[1], mesh), mesh,
                           strategy="mask", seed=3, device=device, group=group)
     g1 = sess.insert(X[:100], np.arange(100)).cpu().numpy()
     g2 = sess.insert(X[100:200], np.arange(100, 200)).cpu().numpy()
     return sess, np.concatenate([g1, g2])
 
 
-def session_checks(group, X, Q, device="cpu") -> dict:
+def session_checks(group, X, Q, device="cpu", mesh=MESH) -> dict:
     """A MASK session that grows in lockstep and consolidates (by its
     threshold and by a call): gids, counters, answers and the global
-    state; then a session started from the gathered state."""
-    sess, g = _growing_session(group, X, device)
+    state of the rank's replica; then a session started from the gathered
+    state."""
+    sess, g = _growing_session(group, X, device, mesh)
     sess.delete(g[:60])
     sess.flush()
     sess.delete(g[60:80])
@@ -168,18 +194,18 @@ def session_checks(group, X, Q, device="cpu") -> dict:
                                    t.n_consolidations, t.n_consolidated,
                                    t.n_refused, n_cons, sess.n_alive(),
                                    sess.n_masked()]),
-           "state": state_arrays(sess.state, group)}
+           "state": state_arrays(sess.state, sess.replica)}
     glob = sess.gather_state()
-    again = ShardedSession(sess.dp, MESH, strategy="mask", state=glob,
+    again = ShardedSession(sess.dp, mesh, strategy="mask", state=glob,
                            group=group)
     out["roundtrip_block"] = all(
         torch.equal(getattr(again.state, f), getattr(sess.state, f))
         for f in DATA_FIELDS)
-    out["roundtrip_state"] = state_arrays(again.state, group)
+    out["roundtrip_state"] = state_arrays(again.state, again.replica)
     return out
 
 
-def crash_checks(group, X, device="cpu") -> dict:
+def crash_checks(group, X, device="cpu", mesh=MESH) -> dict:
     """For each sharded crash point: the op of a fixed stream at which its
     second hit (the first for the grow points) raised, and the hits."""
     out = {}
@@ -188,7 +214,7 @@ def crash_checks(group, X, device="cpu") -> dict:
         ops = []
         with faults.inject(plan):
             try:
-                sess, g = _growing_session(group, X, device)
+                sess, g = _growing_session(group, X, device, mesh)
                 ops.append("insert")
                 # 20 tombstones a shard: two consolidation passes
                 sess.delete(g[:160])
@@ -202,14 +228,98 @@ def crash_checks(group, X, device="cpu") -> dict:
     return out
 
 
-def rank_checks(group, X, Q, members: dict, device="cpu") -> dict:
+def rank_checks(group, X, Q, members: dict, resume_dir=None,
+                device="cpu") -> dict:
     """``session_checks``, ``crash_checks`` and this rank's member of an
-    int8-compressed mean (``members``: leaf → ``[world, ...]`` array)."""
+    int8-compressed mean (``members``: leaf → ``[world, ...]`` array);
+    with ``resume_dir``, ``resume_checks`` of :func:`pod_checks`'s
+    checkpoint on this group."""
     mine = {k: torch.from_numpy(v[group.rank]) for k, v in members.items()}
     psum = compressed_psum(mine, prng.prng_key(11), group=group)
-    return {"session": session_checks(group, X, Q, device),
-            "crash": crash_checks(group, X, device),
-            "psum": {k: v.numpy() for k, v in psum.items()}}
+    out = {"session": session_checks(group, X, Q, device),
+           "crash": crash_checks(group, X, device),
+           "psum": {k: v.numpy() for k, v in psum.items()}}
+    if resume_dir is not None:
+        out["resume"] = resume_checks(group, resume_dir, X, Q, device)
+    return out
+
+
+def _next_ops(sess, X, Q) -> dict:
+    """The ops after the checkpoint: a query op, an insert op and the
+    rank's replica's state after them."""
+    ids, scores = sess.query(Q)
+    gids = sess.insert(X[150:166], 1000 + np.arange(16))
+    return {"ids": ids.cpu().numpy(), "scores": scores.cpu().numpy(),
+            "gids": gids.cpu().numpy(),
+            "state": state_arrays(sess.state, sess.replica)}
+
+
+def resume_source(group, X, Q, directory, device="cpu") -> dict:
+    """A growing MASK session on ``POD_MESH`` after deletes and a flush,
+    checkpointed by rank 0 (the replica's gathered state, the key
+    counters, the capacity), then the ops that follow the checkpoint."""
+    sess, g = _growing_session(group, X, device, POD_MESH)
+    sess.delete(g[:60])
+    sess.flush()
+    tree = {"graph": sess.gather_state(),
+            "op_counters": np.asarray(sess.op_counters, np.int64)}
+    if group is None or group.rank == 0:
+        CheckpointManager(directory).save(
+            1, tree, extra={"capacity": sess.dp.index.capacity})
+    return _next_ops(sess, X, Q)
+
+
+def resume_checks(group, directory, X, Q, device="cpu") -> dict:
+    """:func:`resume_source`'s checkpoint restored onto this group's rank
+    count (each rank keeps its block of its pod's replica), then the same
+    ops."""
+    dp = growing_dist_params(X.shape[1], POD_MESH)
+    tree, extra = CheckpointManager(directory).restore(
+        None, {"graph": init_specs_tree(dp), "op_counters": np.zeros(2)})
+    ip = dataclasses.replace(dp.index, capacity=int(extra["capacity"]))
+    dp = dataclasses.replace(dp, index=ip)
+    state = graph_state_from_numpy(
+        tree["graph"], capacity=ip.capacity, dim=ip.dim, d_out=ip.d_out,
+        d_in=ip.eff_d_in, metric=ip.metric,
+        device=device if group is None else group.device)
+    sess = ShardedSession(dp, POD_MESH, strategy="mask", seed=3, state=state,
+                          group=group,
+                          op_counters=tuple(int(c) for c in tree["op_counters"]))
+    return _next_ops(sess, X, Q)
+
+
+def disagree_checks(group, X, device="cpu") -> str:
+    """A pod session whose pod-1 replica gains one alive slot behind the
+    session's back: the message of the :class:`ReplicaMismatch` that the
+    next count raises (on every rank), or "" if none did."""
+    sess, _ = _growing_session(group, X, device, POD_MESH)
+    if pod_of(sess.dp, sess.mesh, group) == 1:
+        free = torch.nonzero(~sess.state.present[0]).flatten()
+        sess.state.alive[0, free[0]] = True
+    try:
+        sess.n_alive()
+    except ReplicaMismatch as e:
+        return str(e)
+    return ""
+
+
+def pod_checks(group, X, Q, members: dict, directory, device="cpu") -> dict:
+    """On ``POD_MESH``, the pods on their own ranks: ``session_checks``,
+    ``crash_checks``, this pod's member of an int8-compressed mean over
+    the pod-peer group (``members``: leaf → ``[pods, ...]`` array),
+    ``resume_source`` (rank 0 saves to ``directory``) and
+    ``disagree_checks``."""
+    dp = growing_dist_params(X.shape[1], POD_MESH)
+    _, peers = pod_groups(dp, POD_MESH, group)
+    pod = pod_of(dp, POD_MESH, group)
+    mine = {k: torch.from_numpy(v[pod]) for k, v in members.items()}
+    psum = compressed_psum(mine, prng.prng_key(11), group=peers)
+    return {"pod": pod,
+            "session": session_checks(group, X, Q, device, POD_MESH),
+            "crash": crash_checks(group, X, device, POD_MESH),
+            "psum": {k: v.numpy() for k, v in psum.items()},
+            "resume": resume_source(group, X, Q, directory, device),
+            "disagree": disagree_checks(group, X, device)}
 
 
 def raise_on_rank(group, bad: int) -> int:
