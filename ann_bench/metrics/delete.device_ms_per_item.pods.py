@@ -1,0 +1,4 @@
+"""``delete.device_ms_per_item``, in the four-card cell, which reports ``items_per_s.pods``."""
+from ann_bench.harness import load_reader
+
+read = load_reader("delete.device_ms_per_item")

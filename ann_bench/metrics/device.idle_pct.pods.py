@@ -1,0 +1,4 @@
+"""``device.idle_pct``, in the four-card cell, which reports ``items_per_s.pods``."""
+from ann_bench.harness import load_reader
+
+read = load_reader("device.idle_pct")
