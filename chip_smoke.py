@@ -480,6 +480,43 @@ def gather_exactness(torch, kops, kref, dev, g, xi, xg) -> dict:
     return report
 
 
+def gather_valid_lanes(torch, kops, dev, g, table) -> dict:
+    """The gathers' in-kernel valid-lane count: armed, each of the three
+    (f32, bf16, q8 rows; every tile size at B 64, 1,000 and 4,096 × C 32
+    with ``edge_ids``, a quarter of the lanes set to -1) adds
+    ``((ids >= 0) & (ids < N)).sum()`` and launches as often as unarmed,
+    with the same bits; unarmed it adds nothing. Returns the counts."""
+    from repro_torch.core.quantize import quantize_rows
+    N = table.shape[0]
+    tsq = (table * table).sum(1)
+    codes, scales = quantize_rows(table)
+    tables = {"gather_scores": (kops.gather_scores, table, tsq),
+              "gather_scores_bf16": (kops.gather_scores, table.bfloat16(), tsq),
+              "gather_scores_q8": (kops.gather_scores_q8, codes, scales)}
+    counted = {}
+    for B in (64, 1000, 4096):
+        ids = edge_ids(torch, g, N, B, 32, dev)
+        ids[torch.rand(ids.shape, generator=g, device=dev) < 0.25] = -1
+        q = torch.randn((B, table.shape[1]), generator=g, device=dev)
+        want = int(((ids >= 0) & (ids < N)).sum())
+        for name, (fn, tab, aux) in tables.items():
+            n0, v0 = kops.launches[name], kops.read_valid_lanes()[name]
+            plain = fn(tab, aux, ids, q)
+            v1 = kops.read_valid_lanes()[name]
+            kops.arm_valid_lanes(True)
+            try:
+                armed = fn(tab, aux, ids, q)
+            finally:
+                kops.arm_valid_lanes(False)
+            got = kops.read_valid_lanes()[name] - v1
+            check(v1 == v0, f"{name} B={B}: an unarmed launch counted valid lanes")
+            check(got == want, f"{name} B={B}: {got} valid lanes counted, {want} in the ids")
+            check(kops.launches[name] - n0 == 2, f"{name} B={B}: arming added a launch")
+            check(torch.equal(plain, armed), f"{name} B={B}: armed bits differ")
+            counted[f"{name}_B{B}"] = [got, B * 32]
+    return counted
+
+
 def gather_graph_replay(torch, kops, dev, g, table, tsq) -> bool:
     """One gather_scores launch at B = 64, C = 32 captured in a CUDA graph,
     new ids and queries copied into its static inputs, replayed: the same
@@ -573,6 +610,7 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
         _close(*gather_case(t, (t * t).sum(1), ids, q, "gather_scores", "l2"))
         c, s = quantize_rows(t)
         _close(*gather_case(c, s, ids, q, "gather_scores_q8", "l2"))
+    valid_lanes = gather_valid_lanes(torch, kops, dev, g, xg)
     tsq = (xg * xg).sum(1)
     check(gather_graph_replay(torch, kops, dev, g, xg, tsq),
           "gather_scores: a captured launch replayed to other bits than an eager call")
@@ -712,6 +750,7 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     del qb
     results["score_topk"].update(score_topk_b1_case(torch, kops, kref, dev, g))
     results["score_matrix"] = score_matrix_case(torch, kops, kref, dev, g, xg)
+    results["gather_valid_lanes"] = valid_lanes
     return results
 
 
@@ -1242,8 +1281,8 @@ def phase_parity() -> dict:
 def gather_shape_split(kops) -> dict:
     """The gathers' launches by (B, C), most launched first."""
     return {name: {f"B{b}xC{c}": n for (b, c), n in sorted(
-        by_shape.items(), key=lambda kv: -kv[1])}
-        for name, by_shape in kops.launches_by_shape.items()}
+        kops.launches_by_shape[name].items(), key=lambda kv: -kv[1])}
+        for name in kops.GATHERS}
 
 
 # ---------------------------------------------------------------------------

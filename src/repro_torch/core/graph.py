@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.core.stable import argmax_first, scatter_max_, set_drop
 
 NULL = -1
@@ -373,6 +373,7 @@ def apply_row_updates(state: GraphState, us: torch.Tensor,
     return state
 
 
+@tracing.spanned("graph.apply")
 def set_out_edges_batch(state: GraphState, us: torch.Tensor,
                         targets: torch.Tensor, valid: torch.Tensor
                         ) -> GraphState:

@@ -14,7 +14,9 @@ lanes are NULL/-inf and sort after the pools' own -inf padding), so testing
 late gives the same pools and hop counts.
 
 ``loop_counts`` counts the engine's calls (``searches``) and the trips of
-its beam loop (``trips``), on every device; the planner reads them.
+its beam loop (``trips``), on every device; the planner and
+``tracing.counters`` read them. The entry draw and the beam loop each run
+inside a span (``search.entry_draw``, ``search.beam``: ``tracing``).
 
 ``search_one``/``search_one_raw`` are B = 1 views of the batched engine.
 The per-query reference engine of the JAX package (``*_reference``, one
@@ -35,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import distances, prng
 from repro_torch.core.graph import NULL, GraphState
 from repro_torch.core.params import SearchParams
@@ -74,6 +77,7 @@ def entry_points(state: GraphState, key: torch.Tensor, num_starts: int
     return _rank_starts(state, key.to(state.device)[None], num_starts)[0]
 
 
+@tracing.spanned("search.entry_draw")
 def batch_entry_points(state: GraphState, key: torch.Tensor, batch: int,
                        num_starts: int, offset: int = 0,
                        active: torch.Tensor | None = None) -> torch.Tensor:
@@ -116,6 +120,7 @@ def _merge_pools(pool_ids, pool_scores, pool_exp, new_ids, new_scores, k):
             torch.gather(all_exp, 1, idx))
 
 
+@tracing.spanned("search.beam")
 def beam_search(state: GraphState, queries: torch.Tensor,
                 start_ids: torch.Tensor, params: SearchParams, *,
                 raw: bool = False) -> SearchResult:

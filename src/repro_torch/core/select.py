@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import distances
 from repro_torch.core.graph import NULL
 from repro_torch.core.stable import argmax_first, top_k
@@ -19,6 +20,7 @@ from repro_torch.core.stable import argmax_first, top_k
 NEG_INF = float("-inf")
 
 
+@tracing.spanned("graph.select")
 def select_neighbors(x_vec: torch.Tensor, cand_ids: torch.Tensor,
                      cand_vecs: torch.Tensor, cand_valid: torch.Tensor,
                      d: int, metric: str, keep_pruned: bool = False

@@ -85,7 +85,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.core import consolidate as consolidate_mod
 from repro_torch.core import delete as delete_mod
 from repro_torch.core import insert as insert_mod
@@ -268,6 +268,7 @@ def bf16_rows(state: GraphState) -> GraphState:
         scales=torch.where(p, scales, 0.0))
 
 
+@tracing.spanned("sharded.flat_view")
 def flat_view(state_stacked: GraphState) -> GraphState:
     """The stack as one ``S·cap``-slot graph for the beam engine: ``adj``
     entries of shard s offset by ``s·cap`` (a new tensor), every other
@@ -299,6 +300,7 @@ def topk_union(flat_scores: torch.Tensor, flat_ids: torch.Tensor, k: int
     return top_s, torch.gather(flat_ids, 1, idx)
 
 
+@tracing.spanned("sharded.merge")
 def _merge(scores: torch.Tensor, gids: torch.Tensor, dp: DistParams,
            mesh: ShardMesh, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-shard lists ``[S, B, K]`` → the fan-in ``[B, k]``. Two-stage as

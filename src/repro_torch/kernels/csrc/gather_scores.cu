@@ -66,6 +66,11 @@
 // on, which the beam loop never does; chip_smoke.py and
 // tools/torch_kernel_compare.py time each call on the next id set of a
 // rotation whose rows exceed twice the L2.
+// Valid lanes: each entry point takes a counter, a 64-bit integer or NULL.
+// Given one, every block adds the number of its (b, c) pairs whose id lies in
+// [0, N) with one atomicAdd (a ballot a warp, the warps summed in shared
+// memory), the rows a trace prices; NULL (kernels/ops.py unless
+// tracing.set_sink armed it) skips the count. No launch is added.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <math.h>
@@ -179,6 +184,21 @@ template <> struct Q8Piece<1> {
 
 __device__ __forceinline__ bool in_table(int id, int N) { return id >= 0 && id < N; }
 
+// Adds the block's valid lanes to *valid. Every thread of the block calls
+// it (valid is uniform over the launch), each with its own lane's flag.
+__device__ __forceinline__ void count_valid(bool mine, unsigned long long* valid) {
+  __shared__ unsigned warp_valid[kWarps];
+  const unsigned n = __popc(__ballot_sync(kFull, mine));
+  if ((threadIdx.x & 31) == 0) warp_valid[threadIdx.x >> 5] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += warp_valid[w];
+    if (sum) atomicAdd(valid, sum);
+  }
+}
+
 // Warp w of the grid owns rows [w*R, w*R + R) of the flat [B*C] range.
 // Piece is F32Piece (fp32 rows) or Bf16Piece (bf16 rows).
 template <class Piece, int R>
@@ -186,15 +206,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
 gather_rows_kernel(const typename Piece::Elem* __restrict__ table,
                    const float* __restrict__ tsq, const int* __restrict__ ids,
                    const float* __restrict__ q, float* __restrict__ out, int N,
-                   int d, int C, long long total, int metric) {
+                   int d, int C, long long total, int metric,
+                   unsigned long long* __restrict__ valid) {
   constexpr int VEC = Piece::kVec;
   const int lane = threadIdx.x & 31;
   const long long r0 = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
-  if (r0 >= total) return;
   // 1. the tile's ids, one coalesced load; lane i < R keeps row r0 + i's
   int my_id = -1;
   if (lane < R && r0 + lane < total) my_id = __ldg(ids + r0 + lane);
   const bool my_valid = in_table(my_id, N);
+  if (valid != nullptr) count_valid(my_valid, valid);
+  if (r0 >= total) return;
   const float my_tsq = (metric == 0 && my_valid) ? __ldg(tsq + my_id) : 0.f;
   int id[R];
 #pragma unroll
@@ -251,16 +273,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
 gather_q8_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
                  const int* __restrict__ ids, const float* __restrict__ q,
                  float* __restrict__ out, int N, int d, int C, long long total,
-                 int metric) {
+                 int metric, unsigned long long* __restrict__ valid) {
   using Piece = Q8Piece<VEC>;
   constexpr int R = (32 / kQ8LanesPerRow) * RG;
   const int lane = threadIdx.x & 31;
   const int g = lane / kQ8LanesPerRow, sub = lane % kQ8LanesPerRow;
   const long long r0 = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
-  if (r0 >= total) return;
   int my_id = -1;
   if (lane < R && r0 + lane < total) my_id = __ldg(ids + r0 + lane);
   const bool my_valid = in_table(my_id, N);
+  if (valid != nullptr) count_valid(my_valid, valid);
+  if (r0 >= total) return;
   const float my_scale = my_valid ? __ldg(scales + my_id) : 0.f;
   int id[RG];
 #pragma unroll
@@ -332,13 +355,14 @@ inline unsigned blocks_for(long long total, int rows_per_warp) {
 template <class Piece>
 int launch_rows(const typename Piece::Elem* table, const float* tsq, const int* ids,
                 const float* q, float* out, int N, int d, int C, long long total,
-                int metric, int rows_per_warp, cudaStream_t stream) {
+                int metric, int rows_per_warp, cudaStream_t stream,
+                unsigned long long* valid) {
   const dim3 grid(blocks_for(total, rows_per_warp));
   switch (rows_per_warp) {
-    case 1: gather_rows_kernel<Piece, 1><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
-    case 2: gather_rows_kernel<Piece, 2><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
-    case 4: gather_rows_kernel<Piece, 4><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
-    case kMaxRowsPerWarp: gather_rows_kernel<Piece, kMaxRowsPerWarp><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric); break;
+    case 1: gather_rows_kernel<Piece, 1><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric, valid); break;
+    case 2: gather_rows_kernel<Piece, 2><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric, valid); break;
+    case 4: gather_rows_kernel<Piece, 4><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric, valid); break;
+    case kMaxRowsPerWarp: gather_rows_kernel<Piece, kMaxRowsPerWarp><<<grid, kThreads, 0, stream>>>(table, tsq, ids, q, out, N, d, C, total, metric, valid); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -347,13 +371,13 @@ int launch_rows(const typename Piece::Elem* table, const float* tsq, const int* 
 template <int VEC>
 int launch_q8(const int8_t* codes, const float* scales, const int* ids, const float* q,
               float* out, int N, int d, int C, long long total, int metric,
-              int rows_per_warp, cudaStream_t stream) {
+              int rows_per_warp, cudaStream_t stream, unsigned long long* valid) {
   const dim3 grid(blocks_for(total, rows_per_warp));
   switch (rows_per_warp / (32 / kQ8LanesPerRow)) {
-    case 1: gather_q8_kernel<VEC, 1><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric); break;
-    case 2: gather_q8_kernel<VEC, 2><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric); break;
-    case 4: gather_q8_kernel<VEC, 4><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric); break;
-    case kQ8MaxRowsPerGroup: gather_q8_kernel<VEC, kQ8MaxRowsPerGroup><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric); break;
+    case 1: gather_q8_kernel<VEC, 1><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric, valid); break;
+    case 2: gather_q8_kernel<VEC, 2><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric, valid); break;
+    case 4: gather_q8_kernel<VEC, 4><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric, valid); break;
+    case kQ8MaxRowsPerGroup: gather_q8_kernel<VEC, kQ8MaxRowsPerGroup><<<grid, kThreads, 0, stream>>>(codes, scales, ids, q, out, N, d, C, total, metric, valid); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -366,14 +390,14 @@ int launch_q8(const int8_t* codes, const float* scales, const int* ids, const fl
 extern "C" int gather_scores_f32(const float* table, const float* tsq,
                                  const int* ids, const float* q, float* out,
                                  int N, int d, int B, int C, int metric,
-                                 int rows_per_warp, void* stream) {
+                                 int rows_per_warp, void* stream, unsigned long long* valid) {
   const long long total = (long long)B * C;
   if (rows_per_warp < 1) return (int)cudaErrorInvalidValue;
   const bool vec4 = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(table) % 16 == 0);
   return vec4 ? launch_rows<F32Piece<4>>(table, tsq, ids, q, out, N, d, C, total, metric,
-                                         rows_per_warp, (cudaStream_t)stream)
+                                         rows_per_warp, (cudaStream_t)stream, valid)
               : launch_rows<F32Piece<1>>(table, tsq, ids, q, out, N, d, C, total, metric,
-                                         rows_per_warp, (cudaStream_t)stream);
+                                         rows_per_warp, (cudaStream_t)stream, valid);
 }
 
 // table holds bf16 values as raw 16-bit words. Four-element pieces need
@@ -383,25 +407,25 @@ extern "C" int gather_scores_f32(const float* table, const float* tsq,
 extern "C" int gather_scores_bf16(const uint16_t* table, const float* tsq,
                                   const int* ids, const float* q, float* out,
                                   int N, int d, int B, int C, int metric,
-                                  int rows_per_warp, void* stream) {
+                                  int rows_per_warp, void* stream, unsigned long long* valid) {
   const long long total = (long long)B * C;
   if (rows_per_warp < 1) return (int)cudaErrorInvalidValue;
   const bool vec4 = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(table) % 8 == 0);
   return vec4 ? launch_rows<Bf16Piece<4>>(table, tsq, ids, q, out, N, d, C, total, metric,
-                                          rows_per_warp, (cudaStream_t)stream)
+                                          rows_per_warp, (cudaStream_t)stream, valid)
               : launch_rows<Bf16Piece<1>>(table, tsq, ids, q, out, N, d, C, total, metric,
-                                          rows_per_warp, (cudaStream_t)stream);
+                                          rows_per_warp, (cudaStream_t)stream, valid);
 }
 
 extern "C" int gather_scores_q8(const int8_t* codes, const float* scales,
                                 const int* ids, const float* q, float* out,
                                 int N, int d, int B, int C, int metric,
-                                int rows_per_warp, void* stream) {
+                                int rows_per_warp, void* stream, unsigned long long* valid) {
   const long long total = (long long)B * C;
   if (rows_per_warp < 1 || rows_per_warp % (32 / kQ8LanesPerRow) != 0) return (int)cudaErrorInvalidValue;
   const bool vec16 = (d % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   return vec16 ? launch_q8<16>(codes, scales, ids, q, out, N, d, C, total, metric,
-                               rows_per_warp, (cudaStream_t)stream)
+                               rows_per_warp, (cudaStream_t)stream, valid)
                : launch_q8<1>(codes, scales, ids, q, out, N, d, C, total, metric,
-                              rows_per_warp, (cudaStream_t)stream);
+                              rows_per_warp, (cudaStream_t)stream, valid);
 }

@@ -7,8 +7,13 @@ and routes by device alone: a CPU tensor goes through the plain version in
 no fallback from the card to the plain version.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it, and
-``launches_by_shape`` splits the two gathers' count by ``(B, C)``; the CPU
-path never counts.
+``launches_by_shape`` splits the count by shape: the gathers' by ``(B, C)``,
+``score_topk``'s by ``(B, M, k)``, ``score_matrix``'s by ``(R, B, M)``; the
+CPU path never counts. While ``tracing.set_sink`` has armed it, the gathers
+also count their valid lanes, those whose id lies in [0, N): on the card
+the kernel itself adds them into an int64 per gather (``read_valid_lanes``
+sums them with one sync), on the CPU route the wrapper counts them in torch.
+A gather launches no more kernels armed than unarmed.
 
 A ``meta`` tensor takes a third route, for the planner
 (``launch/analysis.py``): no kernel and no plain version run, the outputs
@@ -47,18 +52,25 @@ observer = None
 
 launches = {"gather_scores": 0, "gather_scores_bf16": 0, "gather_scores_q8": 0,
             "score_topk": 0, "score_matrix": 0}
-launches_by_shape: dict = {"gather_scores": {}, "gather_scores_bf16": {},
-                           "gather_scores_q8": {}}
+launches_by_shape: dict = {name: {} for name in launches}
+GATHERS = ("gather_scores", "gather_scores_bf16", "gather_scores_q8")
+
+# the gathers' valid lanes while armed: the CPU route's here, the card's in
+# one int64[len(GATHERS)] buffer per card, made when armed (or at the first
+# armed launch on another card) and never zeroed but by reset_launches
+valid_lanes = {name: 0 for name in GATHERS}
+_valid_on_card: dict = {}
+_armed = False
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     ("gather_scores", "gather_scores_f32"): [_P, _P, _P, _P, _P, _I, _I, _I,
-                                             _I, _I, _I, _P],
+                                             _I, _I, _I, _P, _P],
     ("gather_scores", "gather_scores_bf16"): [_P, _P, _P, _P, _P, _I, _I, _I,
-                                              _I, _I, _I, _P],
+                                              _I, _I, _I, _P, _P],
     ("gather_scores", "gather_scores_q8"): [_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _I, _I, _I, _P],
+                                            _I, _I, _I, _P, _P],
     ("score_topk", "score_topk_f32"): [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _P],
     ("score_matrix", "score_matrix_f32"): [_P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -79,6 +91,53 @@ def reset_launches() -> None:
         launches[name] = 0
     for by_shape in launches_by_shape.values():
         by_shape.clear()
+    for name in valid_lanes:
+        valid_lanes[name] = 0
+    for buf in _valid_on_card.values():
+        buf.zero_()
+
+
+def _count(name: str, shape: tuple) -> None:
+    launches[name] += 1
+    by_shape = launches_by_shape[name]
+    by_shape[shape] = by_shape.get(shape, 0) + 1
+
+
+def arm_valid_lanes(on: bool) -> None:
+    """Count the gathers' valid lanes from now on (``on``) or no longer;
+    arming makes the current card's buffer (one fill), so that no armed
+    launch on it allocates."""
+    global _armed
+    _armed = bool(on)
+    if _armed and torch.cuda.is_available() and torch.cuda.is_initialized():
+        _valid_buffer(torch.cuda.current_device())
+
+
+def _valid_buffer(index: int) -> torch.Tensor:
+    buf = _valid_on_card.get(index)
+    if buf is None:
+        buf = torch.zeros(len(GATHERS), dtype=torch.int64,
+                          device=torch.device("cuda", index))
+        _valid_on_card[index] = buf
+    return buf
+
+
+def _valid_ptr(name: str, device: torch.device):
+    """The kernel's counter: its int64 in the card's buffer while armed,
+    else NULL (None)."""
+    if not _armed:
+        return None
+    return _valid_buffer(device.index).data_ptr() + 8 * GATHERS.index(name)
+
+
+def read_valid_lanes() -> dict:
+    """Valid lanes counted so far, per gather (both routes; one sync per
+    card that holds a buffer)."""
+    out = dict(valid_lanes)
+    for buf in _valid_on_card.values():
+        for name, n in zip(GATHERS, buf.tolist()):
+            out[name] += n
+    return out
 
 
 _bound: dict = {}
@@ -162,12 +221,17 @@ def _gather(name, fn_name, table, aux, ids, q, metric):
     rc = _fn("gather_scores", fn_name)(
         table.data_ptr(), aux.data_ptr(), ids.data_ptr(), q.data_ptr(),
         out.data_ptr(), table.shape[0], table.shape[1], B, C,
-        METRIC_CODE[metric], rpw, _stream())
+        METRIC_CODE[metric], rpw, _stream(), _valid_ptr(name, table.device))
     _check(rc, name)
-    launches[name] += 1
-    by_shape = launches_by_shape[name]
-    by_shape[(B, C)] = by_shape.get((B, C), 0) + 1
+    _count(name, (B, C))
     return out
+
+
+def _plain_gather(name, fn, table, aux, ids, q, metric):
+    """The CPU route: ``ref``'s gather, its valid lanes counted while armed."""
+    if _armed:
+        valid_lanes[name] += int(((ids >= 0) & (ids < table.shape[0])).sum())
+    return fn(table, aux, ids, q, metric)
 
 
 def gather_work(B: int, C: int, d: int, row_bytes: int) -> tuple[float, float]:
@@ -210,7 +274,7 @@ def gather_scores(table, tsq, ids, q, *, metric: str = "l2") -> torch.Tensor:
     name, fn_name = _GATHER_FN[table.dtype]
     _report_gather(name, table, ids)
     if table.device.type == "cpu":
-        return ref.gather_scores(table, tsq, ids, q, metric)
+        return _plain_gather(name, ref.gather_scores, table, tsq, ids, q, metric)
     return _gather(name, fn_name, table, tsq, ids, q, metric)
 
 
@@ -222,7 +286,8 @@ def gather_scores_q8(codes, scales, ids, q, *, metric: str = "l2"
                                          "gather_scores_q8")
     _report_gather("gather_scores_q8", codes, ids)
     if codes.device.type == "cpu":
-        return ref.gather_scores_q8(codes, scales, ids, q, metric)
+        return _plain_gather("gather_scores_q8", ref.gather_scores_q8, codes, scales,
+                             ids, q, metric)
     return _gather("gather_scores_q8", "gather_scores_q8", codes, scales, ids,
                    q, metric)
 
@@ -299,7 +364,7 @@ def score_topk(x, xsq, q, k: int, *, metric: str = "l2",
         part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), M,
         x.shape[1], B, k, n_valid, METRIC_CODE[metric], splits, _stream())
     _check(rc, "score_topk")
-    launches["score_topk"] += 1
+    _count("score_topk", (B, M, k))
     return out_s, out_i
 
 
@@ -353,5 +418,5 @@ def score_matrix(x, xsq, q, *, metric: str = "l2") -> torch.Tensor:
             x.data_ptr(), xsq.data_ptr(), q.data_ptr(), out.data_ptr(), R, B,
             M, d, METRIC_CODE[metric], _stream())
     _check(rc, "score_matrix")
-    launches["score_matrix"] += 1
+    _count("score_matrix", (R, B, M))
     return out

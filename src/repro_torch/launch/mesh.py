@@ -33,6 +33,8 @@ from typing import Any, Callable, Iterator
 
 import torch
 
+from repro_torch import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
@@ -201,11 +203,12 @@ class CardGroup:
 
         dist.destroy_process_group(self.pg)
 
-    def _timed(self, fn):
+    def _timed(self, name: str, fn):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        out = fn()
+        with tracing.span(name):
+            out = fn()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.collective_s += time.perf_counter() - t0
@@ -220,7 +223,7 @@ class CardGroup:
         x = t.contiguous()
         x = x.view(torch.uint8) if wire else x
         parts = [torch.empty_like(x) for _ in range(self.world)]
-        self._timed(lambda: dist.all_gather(parts, x, group=self.pg))
+        self._timed("collective.all_gather", lambda: dist.all_gather(parts, x, group=self.pg))
         out = torch.cat(parts) if x.dim() else torch.stack(parts)
         return out.view(t.dtype) if wire else out
 
@@ -231,7 +234,7 @@ class CardGroup:
         import torch.distributed as dist
 
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        self._timed(lambda: dist.all_reduce(t, op=red, group=self.pg))
+        self._timed("collective.all_reduce", lambda: dist.all_reduce(t, op=red, group=self.pg))
         return t
 
 

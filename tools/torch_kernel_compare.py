@@ -172,14 +172,16 @@ def old_gather(lib, name, table, aux, ids, q, metric=0):
 
 def new_gather(name, table, aux, ids, q, metric=0):
     """The current kernel through its C entry point alone, at the wrapper's
-    (remembered) tile, as the old kernel is called (no wrapper checks)."""
+    (remembered) tile, as the old kernel is called (no wrapper checks, no
+    valid-lane counter)."""
     B, C = ids.shape
     q8 = name == "gather_scores_q8"
     out = torch.empty((B, C), dtype=torch.float32, device=table.device)
     rpw = ops.gather_plan(B * C, q8, table.device.index)
     fn = ops._fn("gather_scores", "gather_scores_q8" if q8 else "gather_scores_f32")
     rc = fn(table.data_ptr(), aux.data_ptr(), ids.data_ptr(), q.data_ptr(), out.data_ptr(),
-            table.shape[0], table.shape[1], B, C, metric, rpw, ops._stream())
+            table.shape[0], table.shape[1], B, C, metric, rpw, ops._stream(),
+            None)
     ops._check(rc, name)
     return out
 

@@ -10,22 +10,29 @@ ipgm_ann d = 128 settings, capacity 2^20), then prints one JSON line each:
                  the mean hop count;
   phases         one op of 64 queries, 64 inserts, 64 GLOBAL, LOCAL and
                  RWALK deletes, one 64-tombstone consolidation chunk (GLOBAL
-                 repair) and one 64-slot refine chunk, split into
-                 entry-point draw, beam search, select, row apply and the
-                 rest, by synchronised host timers (ms/op); the
-                 ``score_matrix`` kernel's share of select is reported
-                 beside them (it is inside select, not added to the sum);
+                 repair) and one 64-slot refine chunk, split by the
+                 program's spans (``repro_torch.tracing``: the entry draw,
+                 the beam loop, select, the edge apply) and the rest, each
+                 span timed on the host with the card synchronised at both
+                 ends (ms/op); beside them what the program's counters say
+                 of the op: beam trips a search, the gathers' valid lanes
+                 over the lanes they launched, ``score_topk`` and
+                 ``score_matrix`` launches by shape;
   profile        a torch.profiler trace of the same ops: device time by
                  kernel name, launches, the device's busy share of the wall
-                 time, and the two gather kernels' device time and launches.
+                 time, the gather kernels' device time, launches and share
+                 of their roofline (the rows of the valid lanes, counted by
+                 the kernels), and the ``score_matrix`` kernel's device time
+                 and its share of the op's select span.
 
     python3 tools/torch_session_profile.py --sharded [--n-base 1000000]
 
 profiles cell sift1m-sharded of ``chip_smoke.py`` instead: the base placed
 by ``reshard`` into 8 shards of a (4, 2) mesh, rows in bf16, then ops of
 256 queries, 512 routed inserts, 512 GLOBAL deletes and a consolidation of
-512 MASK tombstones through ``ShardedSession``, split as above plus the
-folded query's flat view and merge (``phases``), and traced (``profile``).
+512 MASK tombstones through ``ShardedSession`` in a one-rank NCCL group,
+split as above plus the folded query's flat view and merge and the
+group's collectives (``phases``), and traced (``profile``).
 
 The card's name and power limit come first. Needs one CUDA device; imports
 nothing of JAX.
@@ -48,57 +55,90 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.core import IndexParams, MaintenanceParams, SearchParams, Session  # noqa: E402
-from repro_torch.core import delete as delete_mod  # noqa: E402
-from repro_torch.core import insert as insert_mod  # noqa: E402
-from repro_torch.core import refine as refine_mod  # noqa: E402
-from repro_torch.core import distances, search, select  # noqa: E402
+from repro_torch.core import search  # noqa: E402
 from repro_torch.core.rebuild import bulk_knn_build  # noqa: E402
 from repro_torch.data.synthetic import make_dataset  # noqa: E402
-from repro_torch.launch.analysis import device_kernels  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.launch.analysis import HBM_BYTES_PER_S, device_kernels  # noqa: E402
 
 
-NESTED = "score_matrix_in_select"   # timed inside "select", not summed
 GATHER_KERNELS = ("gather_rows_kernel", "gather_q8_kernel")   # csrc/gather_scores.cu
+ROW_BYTES = {"gather_scores": 4, "gather_scores_bf16": 2, "gather_scores_q8": 1}  # a value
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-@contextlib.contextmanager
-def phase_timers(acc: dict):
-    """Wrap the pipeline's stages with synchronised host timers."""
-    from repro_torch.distributed import ann
-    targets = [
-        (ann, "flat_view", "flat_view"),
-        (ann, "_merge", "merge"),
-        (search, "batch_entry_points", "entry_points"),
-        (search, "beam_search", "beam_search"),
-        (select, "select_neighbors", "select"),
-        (distances, "score_matrix", NESTED),
-        (insert_mod, "set_out_edges_batch", "apply_rows"),
-        (delete_mod, "set_out_edges_batch", "apply_rows"),
-        (refine_mod, "set_out_edges_batch", "apply_rows"),
-    ]
-    saved = []
-    for mod, attr, name in targets:
-        fn = getattr(mod, attr)
-        saved.append((mod, attr, fn))
+class HostSpans:
+    """A span sink (``tracing.set_sink``) that times each span on the host,
+    the card synchronised at both ends: ``s[name]`` sums the spans of that
+    name, ``top_s`` those opened while no other span was open (a nested
+    span's time is also its parent's)."""
 
-        def timed(*a, _fn=fn, _name=name, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = _fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[_name] += time.perf_counter() - t
-            return out
-        setattr(mod, attr, timed)
+    def __init__(self):
+        self.open: list = []            # (name, start) of the open spans, innermost last
+        self.s: dict = defaultdict(float)
+        self.top_s = 0.0
+
+    def __call__(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if self.open and self.open[-1][0] == name:
+            _, t0 = self.open.pop()
+            self.s[name] += now - t0
+            if not self.open:
+                self.top_s += now - t0
+        else:
+            self.open.append((name, now))
+
+
+@contextlib.contextmanager
+def sink(fn):
+    tracing.set_sink(fn)
     try:
-        yield
+        yield fn
     finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+        tracing.set_sink(None)
+
+
+def counted(before: dict, after: dict, per: int) -> dict:
+    """What the program's counters say of the work between two snapshots
+    (``tracing.counters``): beam trips a search, each gather's valid lanes
+    and the lanes it launched, per op, and ``score_topk`` (B, M, k) and
+    ``score_matrix`` (R, B, M) launches by shape."""
+    loops = {k: after["loop_counts"][k] - before["loop_counts"][k]
+             for k in after["loop_counts"]}
+    lanes = {}
+    for name in kops.GATHERS:
+        was = before["launches_by_shape"][name]
+        launched = sum(b * c * (n - was.get((b, c), 0))
+                       for (b, c), n in after["launches_by_shape"][name].items())
+        valid = after["valid_lanes"][name] - before["valid_lanes"][name]
+        if launched or valid:
+            lanes[name] = {"valid": valid / per, "launched": launched / per}
+    shapes = {name: {"x".join(map(str, shape)): n - before["launches_by_shape"][name].get(shape, 0)
+                     for shape, n in after["launches_by_shape"][name].items()
+                     if n > before["launches_by_shape"][name].get(shape, 0)}
+              for name in ("score_topk", "score_matrix")}
+    return {"trips_per_search": loops["trips"] / loops["searches"] if loops["searches"] else None,
+            "gather_lanes": lanes, "launches_by_shape": shapes}
+
+
+def gather_bytes(before: dict, after: dict, d: int) -> float:
+    """The gathers' bytes between two snapshots: each valid lane's row, id,
+    norm or scale and score once, and each launch's queries once
+    (``kernels/ops.py::gather_work`` with the valid lanes for B·C)."""
+    total = 0.0
+    for name in kops.GATHERS:
+        was = before["launches_by_shape"][name]
+        launches_q = sum(b * (n - was.get((b, c), 0))
+                         for (b, c), n in after["launches_by_shape"][name].items())
+        valid = after["valid_lanes"][name] - before["valid_lanes"][name]
+        total += valid * (ROW_BYTES[name] * d + 12) + launches_q * d * 4
+    return total
 
 
 def main() -> int:
@@ -116,7 +156,9 @@ def main() -> int:
                          text=True).stdout.strip()
     emit({"card": smi})
     if args.sharded:
-        return sharded_main(args.n_base, max(2, args.ops // 2))
+        from repro_torch.launch.mesh import one_rank
+        with one_rank("cuda", timeout_s=900) as group:
+            return sharded_main(args.n_base, max(2, args.ops // 2), group)
 
     n = args.n_base
     n_ops = args.ops
@@ -174,40 +216,45 @@ def main() -> int:
     }
     sess.query(queries[:64]).result()              # warm-up of every path
     delete_with(other["mask"], 64 * n_ops)         # tombstones to consolidate
-    emit({"phases": timed_phases(ops, n_ops, {"consolidate": 1}),
-          "items_per_op": 64})
-    emit({"profile": profile_ops(ops, {"consolidate": lambda: delete_with(
-        other["mask"])})})
+    phases = timed_phases(ops, n_ops, {"consolidate": 1})
+    emit({"phases": phases, "items_per_op": 64})
+    emit({"profile": profile_ops(ops, params.dim, phases,
+                                 {"consolidate": lambda: delete_with(other["mask"])})})
     return 0
 
 
 def timed_phases(ops: dict, n_ops: int, runs: dict | None = None) -> dict:
-    """ms per op of each op, split by ``phase_timers``; ``runs`` names ops
-    that run fewer times than ``n_ops`` (their one run covers n_ops items)."""
+    """ms per op of each op, split by the program's spans (``HostSpans``),
+    with its counters; ``runs`` names ops that run fewer times than
+    ``n_ops`` (their one run covers n_ops items)."""
     runs = runs or {}
-    acc: dict = defaultdict(float)
     totals = {}
-    with phase_timers(acc):
+    with sink(HostSpans()) as spans:
         for name, fn in ops.items():
             n = runs.get(name, n_ops)
-            before = dict(acc)
+            before, top = dict(spans.s), spans.top_s
+            was = tracing.counters()
             torch.cuda.synchronize()
             t = time.perf_counter()
             for i in range(n):
                 fn(i)
             torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
             per = n_ops if name in runs else n
-            wall = (time.perf_counter() - t) / per * 1e3
-            part = {k: (acc[k] - before.get(k, 0.0)) / per * 1e3 for k in acc}
+            part = {k: (v - before.get(k, 0.0)) / per * 1e3 for k, v in spans.s.items()}
             part = {k: v for k, v in part.items() if v > 0}
-            part["other"] = wall - sum(v for k, v in part.items() if k != NESTED)
-            totals[name] = {"ms_per_op": wall, "phases_ms": part}
+            part["other"] = (wall_s - (spans.top_s - top)) / per * 1e3
+            totals[name] = {"ms_per_op": wall_s / per * 1e3, "phases_ms": part,
+                            **counted(was, tracing.counters(), per)}
     return totals
 
 
-def profile_ops(ops: dict, prepare: dict | None = None) -> dict:
+def profile_ops(ops: dict, d: int, phases: dict, prepare: dict | None = None) -> dict:
     """One traced run of each op: device time by kernel, launches, the
-    device's busy share of the wall time, the gathers' device time."""
+    device's busy share of the wall time, the gathers' device time and
+    share of their roofline (valid lanes counted by the kernels, armed by a
+    sink that does nothing), and the ``score_matrix`` kernel's device time
+    and its share of the op's ``graph.select`` span in ``phases``."""
     prepare = prepare or {}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     prof_out = {}
@@ -215,15 +262,18 @@ def profile_ops(ops: dict, prepare: dict | None = None) -> dict:
         if name in prepare:
             prepare[name]()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            fn(0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
+        with sink(lambda span: None):
+            was = tracing.counters()
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                fn(0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            now = tracing.counters()
         kernels = []
         busy = 0.0
         launches = 0
-        gather_us, gather_n = 0.0, 0
+        gather_us, gather_n, matrix_us = 0.0, 0, 0.0
         for dev_us, count, key in device_kernels(prof):
             busy += dev_us
             launches += count
@@ -231,19 +281,28 @@ def profile_ops(ops: dict, prepare: dict | None = None) -> dict:
             if any(k in key for k in GATHER_KERNELS):
                 gather_us += dev_us
                 gather_n += count
+            if "score_matrix" in key:
+                matrix_us += dev_us
         kernels.sort(reverse=True)
+        select_ms = phases.get(name, {}).get("phases_ms", {}).get("graph.select")
         prof_out[name] = {
             "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "busy_share": busy / 1e6 / wall if wall > 0 else None,
             "kernel_launches": launches,
             "gather_device_ms": gather_us / 1e3, "gather_launches": gather_n,
+            "gather_roofline_pct": (100.0 * gather_bytes(was, now, d) / HBM_BYTES_PER_S
+                                    / (gather_us / 1e6) if gather_us else None),
+            "score_matrix_device_ms": matrix_us / 1e3,
+            "score_matrix_share_of_select": (matrix_us / 1e3 / select_ms
+                                             if select_ms and matrix_us else None),
             "top": [{"kernel": k, "device_ms": us / 1e3, "count": c}
                     for us, c, k in kernels[:8]]}
     return prof_out
 
 
-def sharded_main(n: int, n_ops: int) -> int:
-    """The sharded cell's ops, split and traced (see the module doc)."""
+def sharded_main(n: int, n_ops: int, group) -> int:
+    """The sharded cell's ops on ``group``, split and traced (see the
+    module doc)."""
     import chip_smoke
     from repro_torch.core.graph import NULL
     from repro_torch.distributed import (DistParams, ShardedSession, ShardMesh,
@@ -266,7 +325,7 @@ def sharded_main(n: int, n_ops: int) -> int:
     placed, _ = reshard(src, src_params, params, S)
     del src
     sess = ShardedSession(dp, ShardMesh(*chip_smoke.SHARD_MESH), seed=0,
-                          state=bf16_rows(placed))
+                          state=bf16_rows(placed), group=group)
     del placed
     torch.cuda.synchronize()
     emit({"place_s": time.perf_counter() - t, "n_base": n, "shards": S,
@@ -300,18 +359,18 @@ def sharded_main(n: int, n_ops: int) -> int:
            "consolidate": lambda i: consolidate()}
     sess.query(queries[:256])                      # warm-up
     delete_with("mask")                            # tombstones to consolidate
-    emit({"phases": timed_phases({"query": ops["query"],
-                                  "delete_global": ops["delete_global"]}, n_ops),
-          "items_per_op": {"query": 256, "delete_global": per}})
-    emit({"phases_consolidate": timed_phases({"consolidate": ops["consolidate"]}, 1),
-          "tombstones": per})
+    phases = timed_phases({"query": ops["query"], "delete_global": ops["delete_global"]},
+                          n_ops)
+    emit({"phases": phases, "items_per_op": {"query": 256, "delete_global": per}})
+    phases.update(timed_phases({"consolidate": ops["consolidate"]}, 1))
+    emit({"phases_consolidate": phases["consolidate"], "tombstones": per})
     # inserts last but one: each consumes rows of ``fresh``
-    emit({"phases_insert": timed_phases({"insert": insert}, n_ops - 1),
-          "items_per_op": per})
+    phases.update(timed_phases({"insert": insert}, n_ops - 1))
+    emit({"phases_insert": phases["insert"], "items_per_op": per})
     emit({"profile": profile_ops(
         {"query": ops["query"], "insert": lambda i: insert(n_ops - 1),
          "delete_global": ops["delete_global"], "consolidate": ops["consolidate"]},
-        {"consolidate": lambda: delete_with("mask")})})
+        params.dim, phases, {"consolidate": lambda: delete_with("mask")})})
     return 0
 
 
