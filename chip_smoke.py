@@ -257,6 +257,10 @@ KERNELS = {
     "score_matrix": dict(
         source="src/repro_torch/kernels/csrc/score_matrix.cu",
         replaces="src/repro/kernels/distance_matrix.py:59"),
+    "entry_draw": dict(
+        source="src/repro_torch/kernels/csrc/entry_draw.cu",
+        replaces="none (src/repro/core/search.py:73 draws with jax.random.gumbel "
+                 "and lax.top_k)"),
 }
 # the kernels of the f32 session paths (sift1m, maint, durable, tiered,
 # serve); the bf16-row gather runs on the sharded path
@@ -410,12 +414,13 @@ def graph_ms_rotating(fn, n_sets: int) -> float:
     return ms
 
 
-def kernel_bound(work: tuple) -> dict:
-    """``bound_ms`` and ``bound_by`` of a kernel's (FLOPs, bytes), as
-    ``kernels/ops.py``'s ``*_work`` reckons them, at the card's fp32 and
-    HBM peaks (``launch/analysis.py``)."""
+def kernel_bound(work: tuple, dtype: str = "float32") -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel's (operations, bytes), as
+    ``kernels/ops.py``'s ``*_work`` reckons them, at the card's peak for
+    ``dtype`` (fp32, or int32 for the entry draw) and its HBM peak
+    (``launch/analysis.py``)."""
     from repro_torch.launch.analysis import bound_ms
-    ms, by = bound_ms(*work)
+    ms, by = bound_ms(*work, dtype=dtype)
     return dict(bound_ms=ms, bound_by=by)
 
 
@@ -751,7 +756,116 @@ def phase_kernels(torch, kops, kref, dev) -> dict:
     results["score_topk"].update(score_topk_b1_case(torch, kops, kref, dev, g))
     results["score_matrix"] = score_matrix_case(torch, kops, kref, dev, g, xg)
     results["gather_valid_lanes"] = valid_lanes
+    results["entry_draw"] = entry_draw_case(torch, kops, kref, dev, g)
     return results
+
+
+def index_present(torch, g, capacity: int, dev, rows: float = 0.954, holes: float = 0.001):
+    """A bulk-built index's present flags: the first ``rows`` of the slots
+    (10^6 of 2^20), with ``holes`` of them freed again at random."""
+    present = torch.arange(capacity, device=dev) < int(rows * capacity)
+    return present & (torch.rand(capacity, generator=g, device=dev) >= holes)
+
+
+# (lanes, capacity, starts, share of lanes active, fold, present slots or
+# None for a bulk-built index's): the search's query op, the GLOBAL
+# repair's 4,096 lanes with half inactive, a pods shard's query op,
+# insert_one's single key, and 512 lanes over 3 present slots of 2^12
+ENTRY_DRAW_ROWS = ((512, 1 << 20, 2, 1.0, True, None), (4096, 1 << 20, 2, 0.5, True, None),
+                   (512, 1 << 17, 2, 1.0, True, None), (1, 1 << 20, 2, 1.0, False, None),
+                   (512, 1 << 12, 4, 1.0, True, 3))
+
+
+def entry_draw_case(torch, kops, kref, dev, g) -> dict:
+    """``entry_draw`` against its plain version on the card, id for id: at
+    ``ENTRY_DRAW_ROWS`` over a bulk-built index's present flags (timed:
+    kernel device ms by CUDA events, its int32 bound over the drawn lanes'
+    present slots, the plain version's ms; no one library call computes
+    it), and untimed over random holes (half the slots, so chunks are
+    rarely full), with fewer present slots than starts (S 2 and 4), with
+    offsets across 2^31, S 1 to 16, L 1 to 512 and the key on the card
+    or the host. Through
+    ``search.batch_entry_points``: one launch a call in
+    ``launches_by_shape``, no ``topk`` or ``nonzero`` kernel and no
+    allocation near lanes × capacity."""
+    import types
+
+    from repro_torch.core import prng, search
+    from repro_torch.launch.analysis import device_kernels
+
+    def both(present, key, L, S, **kw):
+        got = kops.entry_draw(present, key, L, S, **kw)
+        want = kref.entry_draw(present, key, L, S, **kw)
+        check(torch.equal(got, want), f"entry_draw L {L} capacity {present.shape[0]} S {S} "
+                                      f"{kw}: ids differ from the plain version")
+        return got
+
+    key = prng.prng_key(20260, device=dev)
+    rows = []
+    for L, cap, S, share, fold, n_present in ENTRY_DRAW_ROWS:
+        if n_present is None:
+            present = index_present(torch, g, cap, dev)
+        else:
+            present = torch.zeros(cap, dtype=torch.bool, device=dev)
+            present[torch.randperm(cap, generator=g, device=dev)[:n_present]] = True
+        active = (None if share == 1.0 else
+                  torch.rand(L, generator=g, device=dev) < share)
+        kw = dict(offset=977, active=active, fold=fold)
+        got = both(present, key, L, S, **kw)
+        drawn = L if active is None else int(active.sum())
+        check(int((got[:, 0] >= 0).sum()) == drawn, "entry_draw: a drawn lane has no start")
+        check(int((got >= 0).sum()) == drawn * min(S, int(present.sum())),
+              "entry_draw: NULL where a present slot was left")
+        wl, tile = kops.entry_plan(L, cap, kops.num_sms(dev))
+        rows.append(dict(
+            L=L, capacity=cap, S=S, active=drawn, fold=fold, lanes_per_warp=wl, tile=tile,
+            present=int(present.sum()),
+            ms=median_ms(lambda: kops.entry_draw(present, key, L, S, **kw), runs=20, warmup=3),
+            plain_ms=median_ms(lambda: kref.entry_draw(present, key, L, S, **kw),
+                               runs=3, warmup=1),
+            **kernel_bound(kops.entry_draw_work(drawn, int(present.sum()), S), "int32"),
+            library_ms=None))
+        del present, active, got
+    for L, cap, S, p in ((512, 1 << 17, 2, 0.5), (37, 5000, 16, 0.5), (33, 1 << 12, 4, 0.9),
+                         (1, 777, 3, 0.5), (9, 70000, 1, 0.99)):
+        present = torch.rand(cap, generator=g, device=dev) < p
+        for offset in (0, 2**31 - 5, 2**32 - 3):
+            for k in (key, key.cpu()):         # words read on the card, or passed
+                both(present, k, L, S, offset=offset,
+                     active=torch.rand(L, generator=g, device=dev) < 0.7)
+        both(present, key.cpu(), L, S, fold=False)
+    few = torch.zeros(1 << 12, dtype=torch.bool, device=dev)
+    few[torch.tensor([5, 3000], device=dev)] = True
+    for S in (2, 4):
+        got = both(few[:2000], key, 64, S)     # one present slot
+        check(bool((got[:, 1:] == -1).all()), "entry_draw: NULL past the present slots")
+        both(few, key, 64, S)                   # two present slots
+        both(torch.zeros(300, dtype=torch.bool, device=dev), key, 3, S)
+    del few
+
+    # the engine's call: one launch, no top-k or nonzero, nothing lanes × capacity wide
+    L, cap = 512, 1 << 20
+    state = types.SimpleNamespace(present=index_present(torch, g, cap, dev))
+    active = torch.rand(L, generator=g, device=dev) < 0.9
+    search.batch_entry_points(state, key, L, 2, offset=3, active=active)
+    torch.cuda.synchronize()
+    before = dict(kops.launches_by_shape["entry_draw"])
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        search.batch_entry_points(state, key, L, 2, offset=3, active=active)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - allocated
+    names = sorted({name for _, _, name in device_kernels(prof)})
+    after = kops.launches_by_shape["entry_draw"]
+    check({k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+          == {(L, cap, 2): 1}, "batch_entry_points: not one entry_draw launch a call")
+    check(not any("topk" in n.lower() or "nonzero" in n.lower() for n in names),
+          f"batch_entry_points launched {names}")
+    check(peak < L * cap // 8, f"batch_entry_points allocated {peak} bytes")
+    return dict(rows=rows, ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
+                bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
+                library_ms=None, engine_call=dict(kernels=names, peak_bytes=peak))
 
 
 def _topk_gap_ok(gs, gi, ws, wi, k: int) -> int:
@@ -2343,7 +2457,8 @@ SHARD_QUERY_OPS, SHARD_QUERY_BATCH = 4, 256
 SHARD_RANKS = 4                 # the sharded4 and pods4 phases: one rank a card
 SHARD_PODS = 2                  # the pods4 phase: 2 replicas of the 8 shards
 RANK_TIMEOUT_S = 900            # every group's deadline: NCCL's and the join's
-SHARDED_KERNELS = ("gather_scores_bf16", "gather_scores", "score_topk", "score_matrix")
+SHARDED_KERNELS = ("gather_scores_bf16", "gather_scores", "score_topk", "score_matrix",
+                   "entry_draw")
 
 
 def shard_capacity(n_base: int, per_round: int, n_shards: int) -> int:

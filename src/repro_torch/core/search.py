@@ -29,7 +29,9 @@ Entry points: lane ``i`` draws ``fold_in(key, offset + i)`` and takes the
 ``num_starts`` present slots with the largest Gumbel draw. Gumbel is a
 monotone function of the uniform draw, so the port ranks the uniform
 draw's integer mantissa (exact on every device) instead of re-deriving the
-float logs, whose last bit differs between XLA and torch.
+float logs, whose last bit differs between XLA and torch. The draw is
+``kernels.ops.entry_draw``: one kernel on the card, its plain version
+(``kernels/ref.py``) on the CPU.
 """
 from __future__ import annotations
 
@@ -38,14 +40,13 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import tracing
-from repro_torch.core import distances, prng
+from repro_torch.core import distances
 from repro_torch.core.graph import NULL, GraphState
 from repro_torch.core.params import SearchParams
 from repro_torch.core.stable import argmax_first, top_k
 from repro_torch.kernels import ops as kernel_ops
 
 NEG_INF = float("-inf")
-_ENTRY_ELEMS = 1 << 25   # lanes × capacity drawn per entry-point group
 _CHECK_EVERY = 8         # beam-loop trips between host syncs on the exit test
 
 loop_counts = {"searches": 0, "trips": 0}
@@ -57,24 +58,10 @@ class SearchResult(NamedTuple):
     n_expanded: torch.Tensor  # i32[...]     hop count
 
 
-def _rank_starts(state: GraphState, keys: torch.Tensor, num_starts: int
-                 ) -> torch.Tensor:
-    """Top-``num_starts`` present slots per key by uniform draw, ties to the
-    lowest slot; non-present picks (fewer present than starts) → NULL."""
-    cap = state.capacity
-    m = prng.uniform_mantissa(keys, cap)                       # [L, cap]
-    idx = torch.arange(cap, device=keys.device, dtype=torch.int64)
-    score = torch.where(state.present, m, -1).to(torch.int64)
-    comp = (score << 32) | (0xFFFFFFFF - idx)
-    _, ids = torch.topk(comp, num_starts, dim=-1)
-    ok = state.present[ids]
-    return torch.where(ok, ids, NULL).to(torch.int32)
-
-
 def entry_points(state: GraphState, key: torch.Tensor, num_starts: int
                  ) -> torch.Tensor:
     """``num_starts`` distinct present slots for one key: i32[S]."""
-    return _rank_starts(state, key.to(state.device)[None], num_starts)[0]
+    return kernel_ops.entry_draw(state.present, key, 1, num_starts, fold=False)[0]
 
 
 @tracing.spanned("search.entry_draw")
@@ -85,17 +72,8 @@ def batch_entry_points(state: GraphState, key: torch.Tensor, batch: int,
     ``fold_in(key, offset + i)``. Lanes where ``active`` is False get NULL
     starts (an empty walk); callers pass it for lanes whose results they
     discard, which saves the capacity-wide draw for them."""
-    dev = state.device
-    lanes = torch.arange(batch, device=dev, dtype=torch.int64) + int(offset)
-    keys = prng.fold_in(key.to(dev), lanes)                    # [B, 2]
-    out = torch.full((batch, num_starts), NULL, dtype=torch.int32, device=dev)
-    todo = (torch.arange(batch, device=dev) if active is None
-            else torch.nonzero(active).flatten())
-    group = max(1, _ENTRY_ELEMS // max(state.capacity, 1))
-    for lo in range(0, todo.shape[0], group):
-        sel = todo[lo:lo + group]
-        out[sel] = _rank_starts(state, keys[sel], num_starts)
-    return out
+    return kernel_ops.entry_draw(state.present, key, batch, num_starts,
+                                 offset=offset, active=active)
 
 
 def _score_block(state: GraphState, queries: torch.Tensor, ids: torch.Tensor,

@@ -8,21 +8,22 @@ no fallback from the card to the plain version.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it, and
 ``launches_by_shape`` splits the count by shape: the gathers' by ``(B, C)``,
-``score_topk``'s by ``(B, M, k)``, ``score_matrix``'s by ``(R, B, M)``; the
-CPU path never counts. While ``tracing.set_sink`` has armed it, the gathers
-also count their valid lanes, those whose id lies in [0, N): on the card
-the kernel itself adds them into an int64 per gather (``read_valid_lanes``
-sums them with one sync), on the CPU route the wrapper counts them in torch.
+``score_topk``'s by ``(B, M, k)``, ``score_matrix``'s by ``(R, B, M)``,
+``entry_draw``'s by ``(L, capacity, S)``; the CPU path never counts. While
+``tracing.set_sink`` has armed it, the gathers also count their valid
+lanes, those whose id lies in [0, N): on the card the kernel itself adds
+them into an int64 per gather (``read_valid_lanes`` sums them with one
+sync), on the CPU route the wrapper counts them in torch.
 A gather launches no more kernels armed than unarmed.
 
 A ``meta`` tensor takes a third route, for the planner
 (``launch/analysis.py``): no kernel and no plain version run, the outputs
 come back with their shapes and dtypes and no data. Every call, on every
 route, reports the kernel's own work to ``observer`` while the planner's
-counter has set it: FLOPs and the bytes each input read once and each
-output written once would move (``gather_work``, ``topk_work``,
-``matrix_work``; ``chip_smoke.py`` prices the same work as each kernel's
-bound).
+counter has set it: FLOPs (``entry_draw``: int32 operations) and the
+bytes each input read once and each output written once would move
+(``gather_work``, ``topk_work``, ``matrix_work``, ``entry_draw_work``;
+``chip_smoke.py`` prices the same work as each kernel's bound).
 """
 from __future__ import annotations
 
@@ -45,13 +46,22 @@ GATHER_MIN_BLOCKS_PER_SM = 8    # csrc/gather_scores.cu kMinBlocksPerSM
 GATHER_ROWS_PER_WARP = (1, 2, 4, 8)         # fp32, up to kMaxRowsPerWarp
 GATHER_Q8_LANES_PER_ROW = 8                 # csrc/gather_scores.cu kQ8LanesPerRow
 GATHER_Q8_ROWS_PER_WARP = (4, 8, 16, 32)    # 4 lane groups × 1..kQ8MaxRowsPerGroup
+ENTRY_MAX_STARTS = 16           # csrc/entry_draw.cu kMaxStarts
+ENTRY_WARPS = 8                 # csrc/entry_draw.cu kWarps (a block)
+ENTRY_MIN_TILE = 512            # csrc/entry_draw.cu kMinTile (slots)
+ENTRY_MIN_BLOCKS_PER_SM = 16    # the plan doubles the tile while the grid keeps these
+# int32 operations a drawn slot: threefry's 20 rounds of add, rotate and xor
+# (60), its 10 key injections, the counter's add, the mantissa's xor and
+# shift, the threshold compare
+ENTRY_OPS_PER_SLOT = 74
 
-# ``observer(name, device_type, flops, nbytes, shape)``, set while a cost
-# counter traces (launch/analysis.py), else None
+# ``observer(name, device_type, flops, nbytes, shape, dtype)``, set while a
+# cost counter traces (launch/analysis.py), else None; ``dtype`` names the
+# peak the operations run at ("float32", or "int32" for the entry draw)
 observer = None
 
 launches = {"gather_scores": 0, "gather_scores_bf16": 0, "gather_scores_q8": 0,
-            "score_topk": 0, "score_matrix": 0}
+            "score_topk": 0, "score_matrix": 0, "entry_draw": 0}
 launches_by_shape: dict = {name: {} for name in launches}
 GATHERS = ("gather_scores", "gather_scores_bf16", "gather_scores_q8")
 
@@ -78,6 +88,8 @@ _SIGNATURES = {
     ("score_matrix", "score_matrix_bf16"): [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                             _P],
     ("score_matrix", "score_matrix_self_f32"): [_P, _P, _P, _I, _I, _I, _I, _P],
+    ("entry_draw", "entry_draw"): [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _P],
 }
 _SCORE_MATRIX_FN = {torch.float32: "score_matrix_f32",
                     torch.bfloat16: "score_matrix_bf16"}
@@ -166,9 +178,9 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _report(name: str, device: torch.device, flops: float, nbytes: float,
-            shape: tuple) -> None:
+            shape: tuple, dtype: str = "float32") -> None:
     if observer is not None:
-        observer(name, device.type, float(flops), float(nbytes), shape)
+        observer(name, device.type, float(flops), float(nbytes), shape, dtype)
 
 
 def _stream() -> int:
@@ -419,4 +431,95 @@ def score_matrix(x, xsq, q, *, metric: str = "l2") -> torch.Tensor:
             M, d, METRIC_CODE[metric], _stream())
     _check(rc, "score_matrix")
     _count("score_matrix", (R, B, M))
+    return out
+
+
+def entry_plan(L: int, capacity: int, sms: int) -> tuple[int, int]:
+    """(lanes a warp, slots a tile) of ``entry_draw``: the power of two that
+    covers L, at most 32 (at 32 every thread of a warp is a lane), and the
+    largest tile, doubling from ``ENTRY_MIN_TILE``, whose grid of lane
+    groups × tiles still gives each SM ``ENTRY_MIN_BLOCKS_PER_SM`` blocks."""
+    wl = min(32, 1 << max(0, int(L) - 1).bit_length())
+    groups = -(-L // wl)
+    tile = ENTRY_MIN_TILE
+    while groups * -(-capacity // (2 * tile)) >= ENTRY_MIN_BLOCKS_PER_SM * sms:
+        tile *= 2
+    return wl, tile
+
+
+def entry_scratch(L: int, capacity: int, S: int, tile: int) -> int:
+    """int64 elements of ``entry_draw``'s scratch: S keys a lane a tile, then
+    L int32 lane positions."""
+    return L * -(-capacity // tile) * S + -(-L // 2)
+
+
+def entry_draw_work(L: int, capacity: int, S: int) -> tuple[float, float]:
+    """(int32 operations, bytes) of ``entry_draw`` when L lanes draw over
+    ``capacity`` present slots: ``ENTRY_OPS_PER_SLOT`` a (lane, slot) pair and
+    a fold a lane; the present flags, the active flags and key once, S
+    starts a lane out. The wrappers report the shape's (every lane drawing,
+    every slot present); ``chip_smoke.py`` prices its cases' drawn lanes and
+    present slots."""
+    return (float(L) * (capacity + 1) * ENTRY_OPS_PER_SLOT,
+            float(capacity + L + 16 + 4 * L * S))
+
+
+def _as_c_int(word: int) -> int:
+    """A uint32 word (taken mod 2^32) as the C int of the same bits."""
+    word = int(word) & 0xFFFFFFFF
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_plan_on(L: int, capacity: int, device_index: int) -> tuple[int, int]:
+    return entry_plan(L, capacity, _sm_count(device_index))
+
+
+def entry_draw(present, key, L: int, num_starts: int, *, offset: int = 0,
+               active=None, fold: bool = True) -> torch.Tensor:
+    """The beam engine's entry points, i32[L, num_starts]: lane ``i`` takes
+    the present slots with the largest uniform draw of ``fold_in(key,
+    offset + i)`` (of ``key`` itself when ``fold`` is False), ties to the
+    lowest slot, NULL past the present ones; lanes whose ``active`` is False
+    get NULL and draw nothing. ``present`` is bool[capacity], ``key`` the
+    int64 ``[2]`` key words, on the host (passed as two ints, no copy) or
+    on the card (read there). On the card one call is one launch of
+    ``csrc/entry_draw.cu`` (two passes): the lane keys are folded on the
+    device, nothing is read back, and nothing as wide as L × capacity is
+    written (replaces no Pallas kernel: ``repro.core.search`` draws with
+    ``jax.random.gumbel`` and ``lax.top_k``)."""
+    L, S = int(L), int(num_starts)
+    _require(present.dim() == 1 and present.dtype == torch.bool,
+             "entry_draw: present must be bool[capacity]")
+    _require(key.shape == (2,), "entry_draw: key must hold two words")
+    _require(active is None or (active.shape == (L,) and active.dtype == torch.bool),
+             "entry_draw: active must be bool[L]")
+    dev, cap = present.device, present.shape[0]
+    _require(active is None or active.device == dev,
+             "entry_draw: present and active must be on one device")
+    _report("entry_draw", dev, *entry_draw_work(L, cap, S), (L, cap, S), "int32")
+    if dev.type == "cpu":
+        return ref.entry_draw(present, key, L, S, offset=offset, active=active,
+                              fold=fold)
+    _require(1 <= S <= ENTRY_MAX_STARTS,
+             f"entry_draw supports 1 <= num_starts <= {ENTRY_MAX_STARTS}, got {S}")
+    out = torch.empty((L, S), dtype=torch.int32, device=dev)
+    if L == 0 or dev.type == "meta":
+        return out
+    present = present.contiguous()
+    if key.device.type == "cpu":
+        words, key = key.tolist(), None
+    else:
+        words, key = (0, 0), key.to(dev, torch.int64).contiguous()
+    if active is not None:
+        active = active.contiguous()
+    wl, tile = _entry_plan_on(L, cap, dev.index)
+    scratch = torch.empty(entry_scratch(L, cap, S, tile), dtype=torch.int64, device=dev)
+    rc = _fn("entry_draw", "entry_draw")(
+        present.data_ptr(), None if key is None else key.data_ptr(),
+        *(_as_c_int(w) for w in words), None if active is None else active.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), cap, L, S, _as_c_int(offset),
+        int(bool(fold)), wl, tile, _stream())
+    _check(rc, "entry_draw")
+    _count("entry_draw", (L, cap, S))
     return out

@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.stable import top_k
 
 NEG_INF = float("-inf")
+NULL = -1
+ENTRY_ELEMS = 1 << 25   # lanes × capacity drawn per entry-point group
 
 
 def _valid_ids(ids: torch.Tensor, n: int):
@@ -73,3 +76,41 @@ def score_topk(x, xsq, q, k: int, metric: str = "l2",
     ok = top_s > NEG_INF
     return (torch.where(ok, top_s, NEG_INF),
             torch.where(ok, top_i, -1).to(torch.int32))
+
+
+def _rank_starts(present, keys, num_starts: int) -> torch.Tensor:
+    """Top-``num_starts`` present slots per key by uniform draw, ties to the
+    lowest slot; non-present picks (fewer present than starts) → NULL."""
+    cap = present.shape[0]
+    m = prng.uniform_mantissa(keys, cap)                       # [L, cap]
+    idx = torch.arange(cap, device=keys.device, dtype=torch.int64)
+    score = torch.where(present, m, -1).to(torch.int64)
+    comp = (score << 32) | (0xFFFFFFFF - idx)
+    _, ids = torch.topk(comp, num_starts, dim=-1)
+    ok = present[ids]
+    return torch.where(ok, ids, NULL).to(torch.int32)
+
+
+def entry_draw(present, key, L: int, num_starts: int, offset: int = 0,
+               active=None, fold: bool = True) -> torch.Tensor:
+    """i32[L, num_starts]: lane ``i`` ranks the present slots by the uniform
+    draw of ``fold_in(key, offset + i)`` (of ``key`` itself when ``fold`` is
+    False) and keeps the first ``num_starts``, ties to the lowest slot,
+    NULL past the present ones; lanes whose ``active`` is False get NULL.
+    Lanes are drawn in groups of ``ENTRY_ELEMS // capacity``, each group's
+    ``[lanes, capacity]`` draw one elementwise chain and one ``topk``."""
+    dev = present.device
+    key = key.to(dev)
+    if fold:
+        lanes = torch.arange(L, device=dev, dtype=torch.int64) + int(offset)
+        keys = prng.fold_in(key, lanes)                        # [L, 2]
+    else:
+        keys = key.expand(L, 2)
+    out = torch.full((L, num_starts), NULL, dtype=torch.int32, device=dev)
+    todo = (torch.arange(L, device=dev) if active is None
+            else torch.nonzero(active).flatten())
+    group = max(1, ENTRY_ELEMS // max(present.shape[0], 1))
+    for lo in range(0, todo.shape[0], group):
+        sel = todo[lo:lo + group]
+        out[sel] = _rank_starts(present, keys[sel], num_starts)
+    return out

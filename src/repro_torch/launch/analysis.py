@@ -21,7 +21,8 @@ or allocated. The rules per op are JAX's (``repro/launch/analysis.py``):
 A hand-written kernel runs outside aten, so each wrapper of
 ``kernels/ops.py`` reports its call to the counter: on ``meta`` and on
 the card the kernel's own work is charged (the bounds of ``PERF.md`` §6;
-its products count as fp32 matmul FLOPs); on the CPU the plain version's
+its products count as fp32 matmul FLOPs, the entry draw's operations as
+int32 ones in ``matmul_flops["int32"]``); on the CPU the plain version's
 aten ops are counted as they run. ``kernel_calls`` counts the calls by
 kernel and shape. While counting, the live tensor bytes are tracked by
 storage, autograd's saved tensors included: their high-water mark is the
@@ -32,7 +33,10 @@ are counted too, from the same profiler summary ``traced`` prints.
 Peaks are the NVIDIA H100 SXM data sheet's dense rates at 700 W: bf16 and
 fp16 989.4 TFLOP/s on the tensor cores, fp32 66.9 TFLOP/s on the CUDA
 cores (the port's fp32 paths run without TF32), 3.35 TB/s of HBM3, and
-NVLink 4 at 450 GB/s a direction.
+NVLink 4 at 450 GB/s a direction; int32 33.45 TOP/s: each SM issues 64
+lanes of int32 add, shift, funnel shift and logic ops a clock on its ALU
+pipe and 64 of integer multiply-add (an add, to the compiler) on its FMA
+pipe, 132 SMs at 1.98 GHz.
 """
 from __future__ import annotations
 
@@ -49,6 +53,8 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch.sharding import flatten
 
 PEAK_FLOPS = {"bfloat16": 989.4e12, "float16": 989.4e12, "float32": 66.9e12}
+PEAK_INT32_OPS = 2 * 132 * 64 * 1.98e9
+PEAK_OPS = {**PEAK_FLOPS, "int32": PEAK_INT32_OPS}   # the rate of each kind of operation
 HBM_BYTES_PER_S = 3.35e12
 NVLINK_BYTES_PER_S = 450e9
 CARD_BYTES = 80e9                # H100 SXM HBM3
@@ -302,13 +308,13 @@ class _Counter(TorchDispatchMode):
         self.live.add(outs)
         return out
 
-    def observe(self, name, device_type, flops, nbytes, shape) -> None:
+    def observe(self, name, device_type, flops, nbytes, shape, dtype="float32") -> None:
         key = f"{name}{list(shape)}"
         self.cost.kernel_calls[key] = self.cost.kernel_calls.get(key, 0) + 1
         if device_type == "cpu":               # the plain version's ops count
             return
         self.cost.flops += flops
-        self.cost.matmul_flops["float32"] = self.cost.matmul_flops.get("float32", 0.0) + flops
+        self.cost.matmul_flops[dtype] = self.cost.matmul_flops.get(dtype, 0.0) + flops
         self.cost.hbm_bytes += nbytes
 
 
@@ -371,9 +377,9 @@ def cost_of(fn, *args, io_bytes: bool = True) -> Cost:
 
 def bound_ms(flops: float, nbytes: float, dtype: str = "float32") -> tuple[float, str]:
     """(the least time one card takes for this work, in ms; "operations"
-    or "bytes", whichever takes it): the larger of the FLOPs at the
+    or "bytes", whichever takes it): the larger of the operations at the
     dtype's peak and the bytes at the HBM rate."""
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / PEAK_OPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -384,7 +390,7 @@ def roofline(cost: Cost, collective_bytes: float, n_devices: int = 1) -> dict:
     collective bytes are per device already (JAX's model charges them at
     one device too; one card has no link to cross, so its term is 0)."""
     mm = sum(cost.matmul_flops.values())
-    compute = sum(f / PEAK_FLOPS.get(dt, PEAK_FLOPS["float32"])
+    compute = sum(f / PEAK_OPS.get(dt, PEAK_FLOPS["float32"])
                   for dt, f in cost.matmul_flops.items())
     compute += (cost.flops - mm) / PEAK_FLOPS["float32"]
     terms = {"compute_s": compute / n_devices,

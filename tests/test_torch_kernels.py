@@ -16,8 +16,10 @@ import torch
 import repro_torch
 from repro.core.quantize import quantize_rows as jquantize
 from repro.kernels import ops as jops
+from repro_torch.core import prng
 from repro_torch.core.quantize import quantize_rows as tquantize
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from torch_parity import int_vectors
 
 SHAPES = [  # (M, B, d, k) — tests/test_kernels.py
@@ -256,9 +258,10 @@ def test_cpu_tensors_take_the_plain_version():
     tops.gather_scores(x.bfloat16(), (x * x).sum(1), ids, q)
     tops.score_topk(x, (x * x).sum(1), q, 3)
     tops.score_matrix(x, (x * x).sum(1), q)
+    tops.entry_draw(torch.ones(30, dtype=torch.bool), prng.prng_key(0), 4, 2)
     assert set(tops.launches) == {"gather_scores", "gather_scores_bf16",
                                   "gather_scores_q8", "score_topk",
-                                  "score_matrix"}
+                                  "score_matrix", "entry_draw"}
     assert all(v == 0 for v in tops.launches.values())
     assert set(tops.launches_by_shape) == set(tops.launches)
     assert not any(tops.launches_by_shape.values())
@@ -504,3 +507,188 @@ def test_gather_rejects_other_row_types():
     with pytest.raises(ValueError, match="table"):
         tops.gather_scores(torch.zeros((4, 8), dtype=torch.float16),
                            torch.zeros(4), ids, q)
+
+
+# ---- the entry draw's plan (csrc/entry_draw.cu) ----
+
+def _insert(v, key):
+    """csrc/entry_draw.cu ``insert``: into a list sorted descending (0 is
+    empty), dropping the smallest."""
+    if key <= v[-1]:
+        return
+    for i in range(len(v) - 1, 0, -1):
+        v[i] = v[i - 1] if key > v[i - 1] else (key if key > v[i] else v[i])
+    v[0] = max(key, v[0])
+
+
+def _butterfly(lists, first):
+    """The xor-shuffle merge at offsets ``first``, 2·first, .. 16: each
+    thread inserts its partner's list of the step before."""
+    off = first
+    while off < 32:
+        new = []
+        for x in range(32):
+            v = list(lists[x])
+            for key in lists[x ^ off]:
+                _insert(v, key)
+            new.append(v)
+        lists, off = new, 2 * off
+    return lists
+
+
+def _emulate_entry_draw(m, present, active, S, sms):
+    """The kernel's plan in Python, with mantissas ``m [L, capacity]`` given:
+    lane groups compacted over the active lanes, tiles split over the
+    block's warps, each thread's slots by phase and its running list with
+    its threshold, the warp's xor merge, the block's merge through shared
+    memory, S keys a lane a tile, and pass 2's merge of a lane's tiles.
+    Returns (starts [L, S], how often each (lane, slot) was drawn)."""
+    L, cap = m.shape
+    wl, tile = tops.entry_plan(L, cap, sms)
+    ns = 1 << (S - 1).bit_length()
+    pw, span = 32 // wl, tile // tops.ENTRY_WARPS
+    tiles = -(-cap // tile)
+    order = [int(r) for r in np.flatnonzero(active)]
+    draws = np.zeros((L, cap), np.int64)
+    partial = {}
+    for g in range(-(-L // wl)):
+        lanes = [order[p] if p < len(order) else -1 for p in range(g * wl, (g + 1) * wl)]
+        if lanes[0] < 0:
+            continue
+        for t in range(tiles):
+            shared = {}
+            for w in range(tops.ENTRY_WARPS):
+                w0 = t * tile + w * span
+                w1 = min(cap, w0 + span)
+                lists = []
+                for x in range(32):
+                    r, phase = lanes[x % wl], x // wl
+                    best, thr = [0] * ns, 0
+                    for j0 in range(w0, w1, 32) if r >= 0 else ():
+                        for j in range(j0 + phase, min(j0 + 32, w1), pw):
+                            if present[j]:
+                                draws[r, j] += 1
+                                if m[r, j] >= thr:
+                                    _insert(best, (int(m[r, j]) << 32) | (~j & 0xFFFFFFFF))
+                                    thr = best[-1] >> 32
+                    lists.append(best)
+                lists = _butterfly(lists, wl)
+                for x in range(wl):
+                    shared[w, x] = lists[x]
+            for x in range(wl):
+                if lanes[x] >= 0:
+                    best = list(shared[0, x])
+                    for w in range(1, tops.ENTRY_WARPS):
+                        for key in shared[w, x]:
+                            _insert(best, key)
+                    partial[g * wl + x, t] = best[:S]
+    starts = np.full((L, S), -1, np.int64)
+    for r in map(int, np.flatnonzero(active)):
+        p = order.index(r)
+        cands = [key for t in range(tiles) for key in partial[p, t]]
+        lists = []
+        for x in range(32):
+            v = [0] * ns
+            for key in cands[x::32]:
+                _insert(v, key)
+            lists.append(v)
+        best = _butterfly(lists, 1)[0]
+        starts[r] = [(~k & 0xFFFFFFFF) if k else -1 for k in best[:S]]
+    return starts, draws
+
+
+# (L, capacity, S, share of lanes active, share of slots present, SMs)
+ENTRY_PLAN_CASES = [
+    (40, 1000, 2, 0.75, 0.9, 132),    # capacity not a multiple of the tile
+    (1, 3000, 3, 1.0, 0.95, 132),     # one lane: 32 threads split its slots
+    (5, 700, 4, 0.8, 0.7, 1),         # 8 lanes a warp, 4 phases each
+    (64, 1 << 13, 2, 1.0, 0.97, 1),   # two lane groups, the tile doubled
+    (3, 20, 16, 1.0, 0.4, 132),       # fewer present than starts
+    (33, 600, 1, 1.0, 1.0, 132),      # a second group of one lane
+]
+
+
+@pytest.mark.parametrize("draw", ["threefry", "ties"])
+@pytest.mark.parametrize("case", ENTRY_PLAN_CASES, ids=lambda c: f"L{c[0]}-cap{c[1]}-S{c[2]}")
+def test_entry_draw_plan_covers_every_pair_once(case, draw):
+    """Every (active lane, present slot) is drawn by exactly one thread and
+    nothing else is; the merges keep each lane's top S by (m desc, slot
+    asc), so ties go to the lowest slot (``ties``: mantissas in {0, 1, 2})."""
+    L, cap, S, p_active, p_present, sms = case
+    rng = np.random.default_rng(L * cap + S)
+    active = rng.random(L) < p_active
+    active[0] = True
+    present = rng.random(cap) < p_present
+    if draw == "ties":
+        m = rng.integers(0, 3, (L, cap))
+    else:
+        keys = prng.fold_in(prng.prng_key(L), torch.arange(L) + 7)
+        m = prng.uniform_mantissa(keys, cap).numpy()
+    starts, draws = _emulate_entry_draw(m, present, active, S, sms)
+    assert (draws == active[:, None] & present[None, :]).all()
+    for r in range(L):
+        want = sorted(np.flatnonzero(present), key=lambda j: (-m[r, j], j))[:S]
+        want = want + [-1] * (S - len(want)) if active[r] else [-1] * S
+        assert starts[r].tolist() == want, r
+
+
+def test_entry_draw_plan_fills_the_card():
+    """One lane at a shard's 2^17 slots still gives every one of 132 SMs a
+    block; the search's 512 and the repair's 4,096 lanes at 2^20 give each
+    SM 16; every tile is a whole number of the block's ballots, and the
+    scratch stays far below lanes × capacity."""
+    sms = 132
+    for L, cap in ((1, 1 << 17), (512, 1 << 17), (512, 1 << 20), (4096, 1 << 20), (64, 1 << 20)):
+        wl, tile = tops.entry_plan(L, cap, sms)
+        blocks = -(-L // wl) * -(-cap // tile)
+        assert wl == min(32, 1 << (L - 1).bit_length())
+        assert tile >= tops.ENTRY_MIN_TILE and tile % (32 * tops.ENTRY_WARPS) == 0
+        assert blocks >= sms
+        if L * cap >= 512 << 17:
+            assert blocks >= tops.ENTRY_MIN_BLOCKS_PER_SM * sms
+            assert tops.entry_scratch(L, cap, 2, tile) * 8 <= L * cap // 8
+
+
+def test_entry_draw_constants_match_the_kernel_source():
+    src = (Path(tops.build.CSRC) / "entry_draw.cu").read_text()
+
+    def const(name):
+        return int(re.search(r"constexpr int " + name + r" = (\d+);", src).group(1))
+
+    assert const("kMaxStarts") == tops.ENTRY_MAX_STARTS
+    assert const("kWarps") == tops.ENTRY_WARPS
+    assert const("kMinTile") == tops.ENTRY_MIN_TILE
+    assert "entry_draw" in tops.build.SOURCES
+
+
+def test_entry_draw_on_meta_checks_starts_and_reports_int32_work(monkeypatch):
+    """The card's route (``meta`` here) refuses more starts than the kernel
+    holds, returns shapes only and reports the kernel's int32 operations."""
+    present = torch.ones(1 << 10, dtype=torch.bool, device="meta")
+    key = torch.zeros(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="num_starts"):
+        tops.entry_draw(present, key, 8, tops.ENTRY_MAX_STARTS + 1)
+    seen = []
+    monkeypatch.setattr(tops, "observer", lambda *a: seen.append(a))
+    out = tops.entry_draw(present, key, 8, 2, offset=5)
+    assert out.shape == (8, 2) and out.dtype == torch.int32 and out.device.type == "meta"
+    ops, nbytes = tops.entry_draw_work(8, 1 << 10, 2)
+    assert seen == [("entry_draw", "meta", ops, nbytes, (8, 1 << 10, 2), "int32")]
+    assert ops == 8 * ((1 << 10) + 1) * tops.ENTRY_OPS_PER_SLOT
+    assert all(v == 0 for v in tops.launches.values())
+    # the plain version has no such limit
+    got = tops.entry_draw(torch.ones(40, dtype=torch.bool), prng.prng_key(1), 2, 17)
+    assert got.shape == (2, 17) and (got[:, -1] >= 0).all()
+    assert torch.equal(got, tref.entry_draw(torch.ones(40, dtype=torch.bool),
+                                            prng.prng_key(1), 2, 17))
+
+
+def test_entry_draw_bound_is_int32_operations():
+    """The planner prices the entry draw's operations at the int32 peak, in
+    its bound and in the roofline."""
+    from repro_torch.launch import analysis as tan
+    ops, nbytes = tops.entry_draw_work(512, 1 << 20, 2)
+    ms, by = tan.bound_ms(ops, nbytes, "int32")
+    assert by == "operations" and ms == pytest.approx(ops / tan.PEAK_INT32_OPS * 1e3)
+    cost = tan.Cost(flops=ops, hbm_bytes=nbytes, matmul_flops={"int32": ops})
+    assert tan.roofline(cost, 0.0)["compute_s"] == pytest.approx(ops / tan.PEAK_INT32_OPS)

@@ -3,6 +3,7 @@ entry points it drives against ``repro.core.search`` on a JAX-built graph."""
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,8 @@ from repro.core import rebuild as jrebuild
 from repro.core import search as jsearch
 from repro_torch.core import prng
 from repro_torch.core import search as tsearch
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from torch_parity import int_vectors, torch_state
 
 SEEDS = [0, 1, 42, 2**31 - 1]
@@ -158,3 +161,45 @@ def test_entry_points_fewer_present_than_starts():
     got = tsearch.entry_points(torch_state(js), prng.prng_key(11), 4)
     assert (got.numpy() == np.asarray(want)).all()
     assert (got.numpy()[2:] == -1).all()
+
+
+# (L, capacity, starts, offset, share of lanes active, share of slots present, fold)
+ENTRY_DRAW_CASES = {
+    "inactive_lanes": (40, 300, 2, 64, 0.6, 0.9, True),
+    "fewer_present_than_starts": (6, 16, 4, 0, 1.0, 0.15, True),
+    "capacity_off_the_tile": (9, 1000, 3, 2**31 - 4, 1.0, 0.8, True),
+    "one_lane": (1, 777, 2, 1000, 1.0, 0.5, True),
+    "fold_off": (3, 500, 2, 0, 1.0, 0.7, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENTRY_DRAW_CASES))
+def test_entry_draw_cpu_route_equals_rank_starts_and_jax(case, monkeypatch):
+    """``kernels.ops.entry_draw`` on the CPU (the plain version, in lane
+    groups of three here) equals the whole ``_rank_starts`` expression on
+    every lane key and JAX's ``batch_entry_points`` (``entry_points`` when
+    the key is not folded), with NULL rows for inactive lanes."""
+    L, cap, S, offset, p_active, p_present, fold = ENTRY_DRAW_CASES[case]
+    rng = np.random.default_rng(cap + S)
+    present = rng.random(cap) < p_present
+    present[rng.integers(cap)] = True
+    active = rng.random(L) < p_active
+    active[-1] = True
+    seed = 2**31 - 1 - cap
+    monkeypatch.setattr(kref, "ENTRY_ELEMS", 3 * cap)
+    got = kops.entry_draw(torch.from_numpy(present), prng.prng_key(seed), L, S,
+                          offset=offset, active=torch.from_numpy(active), fold=fold).numpy()
+    tk = prng.prng_key(seed)
+    keys = (prng.fold_in(tk, torch.arange(L) + offset) if fold else tk.expand(L, 2))
+    whole = kref._rank_starts(torch.from_numpy(present), keys, S).numpy()
+    jstate = types.SimpleNamespace(present=jnp.asarray(present), capacity=cap)
+    jk = jax.random.PRNGKey(seed)
+    if fold:
+        jax_rows = np.asarray(jsearch.batch_entry_points(jstate, jk, L, S, offset=offset))
+    else:
+        jax_rows = np.repeat(np.asarray(jsearch.entry_points(jstate, jk, S))[None], L, 0)
+    assert (whole == jax_rows).all()
+    assert (got[active] == jax_rows[active]).all()
+    assert (got[~active] == -1).all()
+    if case == "fewer_present_than_starts":
+        assert (got[:, int(present.sum()):] == -1).all()
